@@ -5,11 +5,14 @@
 
 Phases (any failure exits non-zero before the final line):
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from orca_tpu_torch/csrc with nvcc;
+  2. build the CUDA kernels from orca_tpu_torch/csrc with nvcc, and print
+     each kernel's registers, spills and static shared memory (ptxas); the
+     tensor-core kernels must not spill or have their wgmmas serialized;
   3. each kernel at the encoder's production shapes (4 Mb blocks + 112 kb
      halo, fwd + RC rows), bf16 and fp32: held against its plain PyTorch
      version, then timed with CUDA events beside the plain version and the
-     least time the card could take;
+     least time the card could take, with the tile, the blocks launched, the
+     achieved TFLOP/s and the share of the bound;
   4. `genomepredict` on one random 32 Mb window with a random full-width
      bundle: the unfolded bundle is refused on the card before any launch;
      the folded one runs 3 bf16 zoom targets, then 1 fp32, with the launch
@@ -25,6 +28,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +86,51 @@ def time_ms(torch, fn, reps):
     return statistics.median(times)
 
 
+def ptxas_report(log, demangle):
+    """Per compiled kernel in an `nvcc -Xptxas -v` log: its name, registers,
+    (spill store, spill load) bytes, static shared bytes, and the kernels
+    whose wgmmas ptxas serialized ("Potential Performance Loss")."""
+    out, cur, serialized = [], None, set()
+    for line in log.splitlines():
+        m = re.search(r"Potential Performance Loss: wgmma.*function '(\S+)'",
+                      line)
+        if m:
+            serialized.add(demangle(m.group(1)))
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"name": demangle(m.group(1)), "regs": None, "spill": (0, 0),
+                   "smem": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill"] = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["regs"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    for k in out:
+        k["serialized"] = k["name"] in serialized
+    return out
+
+
+def demangler(nvcc):
+    """A function from a mangled kernel name to a readable one (cu++filt
+    beside nvcc), or the identity where there is none."""
+    tool = os.path.join(os.path.dirname(nvcc), "cu++filt")
+    if not os.path.exists(tool):
+        return lambda name: name
+
+    def run(name):
+        res = subprocess.run([tool, name], capture_output=True, text=True,
+                             timeout=30)
+        return res.stdout.strip() or name
+    return run
+
+
 def stage_shapes():
     """Per stage: (input length, cin, c, out_pool, resolution) of one
     production group (a 4 Mb block with its 112 kb halos)."""
@@ -95,7 +144,7 @@ def stage_shapes():
     return out
 
 
-def kernel_phase(torch, enc_params, dtype, peaks):
+def kernel_phase(torch, enc_params, dtype, peaks, sms):
     """Each kernel at production shapes against its plain version; returns
     {kernel: {ms, plain_ms, bound_ms, bound_by, max_abs_err}} summed over the
     kernel's launches in one group."""
@@ -150,11 +199,16 @@ def kernel_phase(torch, enc_params, dtype, peaks):
                   + sum((w.numel() + b.numel()) * esize for w, b in convs)
                   + 4 * vs.numel() * 2)
         t_ops, t_bytes = ops / flops_peak * 1e3, nbytes / peaks[2] * 1e3
+        tile = cc.plan_tile(x.shape[0], length, pool, cin, c, dtype, i == 0,
+                            sms)
+        blocks = x.shape[0] * -(-length // tile)
         print(f"  stage {i} {name} {str(dtype)[6:]}: in {tuple(x.shape)} "
               f"out {tuple(got.shape)} max|d| {d:.3e} max|ref| {m:.3e} "
               f"(tol {tol:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
               f"bound {max(t_ops, t_bytes):.4f} ms "
-              f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB)", flush=True)
+              f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) tile {tile} "
+              f"blocks {blocks} {ops / ms / 1e9:.1f} TFLOP/s "
+              f"{max(t_ops, t_bytes) / ms:.1%} of bound", flush=True)
         check(d <= tol, f"stage {i} {name}: max|d| {d} > {tol}")
         t = totals.setdefault(name, dict(ms=0.0, plain_ms=0.0, t_ops=0.0,
                                          t_bytes=0.0, max_abs_err=0.0))
@@ -235,6 +289,7 @@ def main() -> int:
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     peaks = next(v for k, v in PEAKS.items() if k in kind or k in smi)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -242,10 +297,19 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build(["conv_chain"])
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    demangle = demangler(build.nvcc_path())
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {name}: {line.strip()}")
+        for k in ptxas_report(log, demangle):
+            print(f"  {name}: {k['name']}: {k['regs']} registers, spill "
+                  f"stores {k['spill'][0]} B loads {k['spill'][1]} B, static "
+                  f"smem {k['smem']} B"
+                  f"{', wgmma serialized' if k['serialized'] else ''}",
+                  flush=True)
+            # the tensor-core kernels hold their accumulators in registers
+            # and keep their wgmmas asynchronous
+            check("mma" not in k["name"]
+                  or (k["spill"] == (0, 0) and not k["serialized"]),
+                  f"{k['name']} spills registers or serializes wgmma")
 
     # weights: a random full-width bundle, folded (fp32) and cast (bf16)
     t0 = time.perf_counter()
@@ -259,7 +323,8 @@ def main() -> int:
     for dtype, bundle in ((torch.bfloat16, bf16_bundle),
                           (torch.float32, fp32_bundle)):
         print(f"kernels {dtype}:", flush=True)
-        kernel_rows[dtype] = kernel_phase(torch, bundle.encoder, dtype, peaks)
+        kernel_rows[dtype] = kernel_phase(torch, bundle.encoder, dtype, peaks,
+                                          sms)
 
     # 4. the main path: genomepredict on a random 32 Mb window
     geom = ms.GEOM_32M

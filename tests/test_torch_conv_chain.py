@@ -172,7 +172,62 @@ GPU_CASES = [
     ("chain", 128, 128, 5, 333, ([3, 0], [330, 333]), 1),
     ("chain", 128, 128, 2, 210, ([0, 10], [210, 200]), 1),
     ("chain", 128, 128, 1, 100, ([0, 0], [100, 60]), -1),
+    # the largest tiles (bf16: 488 positions at 64 channels, 232 at 96,
+    # 200 at 128 with pool 5), each with a ragged last tile
+    ("first", 4, 64, 4, 40_000, ([0, 1000], [40_000, 38_500]), "u8"),
+    ("first", 4, 64, 1, 33_001, ([0, 7], [33_001, 32_990]), "float"),
+    ("chain", 64, 64, 4, 40_000, ([0, 123], [40_000, 39_877]), 1),
+    ("chain", 64, 96, 4, 20_000, ([0, 5], [19_993, 20_000]), 1),
+    ("chain", 96, 128, 5, 15_100, ([0, 0], [15_100, 15_000]), 1),
+    # a valid range that starts and ends inside one warp's 16 rows of an
+    # m64 MMA tile
+    ("chain", 128, 128, 1, 3000, ([19, 0], [28, 3000]), -1),
+    ("first", 4, 64, 2, 3000, ([19, 0], [28, 3000]), "u8"),
 ]
+
+
+def _stage_shapes():
+    import chip_smoke
+
+    return chip_smoke.stage_shapes()
+
+
+# production stages (2 rows each) and the GPU cases' shapes
+PLAN_SHAPES = [(2, length, pool, cin, c, i == 0)
+               for i, (length, cin, c, pool, _) in enumerate(_stage_shapes())]
+PLAN_SHAPES += [(2, length, pool, cin, c, kind == "first")
+                for kind, cin, c, pool, length, _, _ in GPU_CASES]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,length,pool,cin,c,first", PLAN_SHAPES)
+def test_tile_plan(dtype, rows, length, pool, cin, c, first):
+    """Tiles are multiples of the pool and of 8 and at least 16, and their
+    shared memory fits a block; a length with enough work fills 132 SMs."""
+    dtype = getattr(torch, dtype)
+    tile = cc.plan_tile(rows, length, pool, cin, c, dtype, first, sms=132)
+    assert tile % pool == 0 and tile % 8 == 0 and tile >= 16
+    assert cc.smem_bytes(cin, c, tile, dtype, first) <= 227 * 1024
+    if rows * -(-length // 16) >= 132:
+        assert rows * -(-length // tile) >= 132
+    if dtype == torch.bfloat16:  # conv 0's tile + 24 rows fit the m64 tiles
+        assert -(-(tile + 24) // 64) * 64 <= (512 if c == 64 else 256)
+
+
+def test_tile_plan_fills_the_card_at_the_small_stages():
+    """Production stages 4-6 launch at least one full wave of 132 blocks;
+    stages 0-3 take the largest tile of their width and pool."""
+    want = {torch.bfloat16: [488, 232, 200, 200], torch.float32: [160] * 4}
+    for dtype in (torch.bfloat16, torch.float32):
+        tiles = []
+        for i, (length, cin, c, pool, _) in enumerate(_stage_shapes()):
+            tile = cc.plan_tile(2, length, pool, cin, c, dtype, i == 0,
+                                sms=132)
+            tiles.append(tile)
+            if i >= 4:
+                assert 2 * -(-length // tile) >= 132, (i, tile)
+        assert tiles[:4] == want[dtype]
+        assert tiles[4:] == [160, 32, 16]
 
 
 @pytest.mark.gpu

@@ -1,6 +1,6 @@
-"""The port stands alone: orca_tpu_torch and chip_smoke.py import neither JAX
-nor anything of orca_tpu, and the port's entry points run on CUDA unless the
-caller asks for the CPU."""
+"""The port stands alone: orca_tpu_torch, chip_smoke.py and the port's card
+scripts import neither JAX nor anything of orca_tpu, and the port's entry
+points run on CUDA unless the caller asks for the CPU."""
 
 import ast
 import os
@@ -17,7 +17,8 @@ FORBIDDEN = {"jax", "jaxlib", "orca_tpu", "flax", "optax", "ml_dtypes"}
 
 
 def _port_sources():
-    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py",
+                                         REPO / "scripts" / "bench_conv_chain.py"]
 
 
 def _imported_roots(path):
