@@ -22,7 +22,21 @@ Phases (any failure exits non-zero before the final line):
      finite and symmetric;
      then the encoder alone, for the encoder/decoder split; then the whole
      cascade on the card against the CPU plain path on a small window;
-  5. one JSON line with every kernel, then the device line.
+  5. `genomepredict_256mb` on a whole synthetic chromosome: an in-memory
+     genome of a 145.1 Mb chromosome and a padding chromosome, the region
+     list of a whole-chromosome request, `retrieve_multi` for the sequence
+     and the region mosaic's background (both timed on the host), packed to
+     uint8 once; the unfolded random 256 Mb bundle is refused on the card
+     before any launch; the folded one runs 2 bf16 zoom targets (the second
+     near the chromosome's end, where the zoom is clamped), then 1 fp32, with
+     the launch counters set to 0 before each request and checked (64 and
+     384 per request), the zoom starts checked against a host float32
+     recomputation with the clamp, the maps checked finite, symmetric and
+     250x250 and the end coordinates inside the chromosome; then the
+     encoder alone, for the split; then the 256 Mb cascade on the card
+     against the CPU plain path on an 8.192 Mb window;
+  6. one JSON line with every kernel (its launches summed over the 32 Mb and
+     256 Mb requests), then the device line.
 """
 
 from __future__ import annotations
@@ -42,6 +56,13 @@ SEED = 0
 HALO_BP = 112_000
 BLOCK_BP = 4_000_000
 ZOOM_TARGETS = (16_000_000, 9_123_000, 27_500_000)  # bp, in a 32 Mb window
+# the 256 Mb request: a chr8-sized chromosome padded by another to 256 Mb,
+# the window centred at 128 Mb; zoom targets as in scripts/bench_256m.py and
+# near the chromosome's end
+CHROM_BP = 145_100_000
+PAD_CHROM_BP = 120_000_000
+WPOS_256 = 128_000_000
+ZOOM_TARGETS_256 = (64_000_000, 143_000_000)
 
 # Published dense peaks (NVIDIA data sheets): (bf16 FLOP/s, fp32 FLOP/s on
 # the CUDA cores, memory bytes/s), keyed by a substring of the card's name.
@@ -264,6 +285,68 @@ def cascade_phase(torch, bundle, seq, targets, geom):
     return outs, secs
 
 
+def host_starts_256(geom, mpos, wpos, chrlen):
+    """Forward zoom starts (finest bins) of the 256 Mb cascade recomputed on
+    the host in float32, proposals clamped to [0, chrlen - span/2]."""
+    f32 = np.float32
+    halfwin, binw = f32(geom.window_bp / 2.0), f32(geom.bin_bp)
+    mpos, wpos, chrlen = f32(mpos), f32(wpos), f32(chrlen)
+    sb, out = 0, []
+    for j in range(4):
+        out.append(sb)
+        factor = geom.bins // (geom.crop * 2**j)
+        span = f32(geom.crop * geom.bin_bp) * f32(factor)
+        prop = (mpos - span / f32(4)) - ((wpos - halfwin) + f32(sb) * binw)
+        b0 = f32(0.0) - (wpos - halfwin)
+        b1 = (chrlen - span / f32(2)) - (wpos - halfwin)
+        prop = min(max(prop, b0), b1) if b0 < b1 else b0
+        sb += int(np.clip(np.floor(prop / (binw * f32(factor))), 0,
+                          geom.half)) * factor
+    return out
+
+
+def cascade256_phase(torch, cc, bundle, seq, normmat, chrlen, targets, geom):
+    """genomepredict_256mb per zoom target, the launch counters set to 0
+    before each request and checked after it; returns (outputs, seconds
+    each, launches summed over the requests)."""
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.predict.multiscale import genomepredict_256mb
+
+    groups = fused_group_count(2, geom.window_bp)
+    want = {"fused_first_stage": groups, "fused_conv_chain": 6 * groups}
+    outs, secs = [], []
+    total = dict.fromkeys(want, 0)
+    for mpos in targets:
+        cc.fused_first_stage.launches = 0
+        cc.fused_conv_chain.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = genomepredict_256mb(seq, "chrM", [normmat], chrlen, mpos,
+                                  WPOS_256, [bundle], padding_chr="chr1",
+                                  geometry=geom)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        counts = {"fused_first_stage": cc.fused_first_stage.launches,
+                  "fused_conv_chain": cc.fused_conv_chain.launches}
+        check(counts == want, f"256 Mb request at {mpos}: launches {counts} "
+              f"!= {want}")
+        for k in total:
+            total[k] += counts[k]
+        starts = [int(WPOS_256 - geom.window_bp // 2 + s * geom.bin_bp)
+                  for s in host_starts_256(geom, mpos, WPOS_256, chrlen)]
+        check(out["start_coords"] == starts,
+              f"256 Mb zoom starts {out['start_coords']} != host float32 "
+              f"{starts}")
+        check(max(out["end_coords"]) <= chrlen,
+              f"end coordinates {out['end_coords']} past {chrlen}")
+        for j, p in enumerate(out["predictions"][0]):
+            check(p.shape == (geom.crop, geom.crop), f"level {j}: {p.shape}")
+            check(np.isfinite(p).all(), f"256 Mb level {j}: non-finite map")
+            check(np.array_equal(p, p.T), f"256 Mb level {j}: not symmetric")
+        outs.append(out)
+    return outs, secs, total
+
+
 def main() -> int:
     import torch
 
@@ -274,8 +357,9 @@ def main() -> int:
     try:
         from orca_tpu_torch.models import zoo
         from orca_tpu_torch.nn import encoders
+        from orca_tpu_torch.data.genome import CodeGenome
         from orca_tpu_torch.ops.kernels import build, conv_chain as cc
-        from orca_tpu_torch.predict import multiscale as ms
+        from orca_tpu_torch.predict import multiscale as ms, retrieval
     except ImportError as e:
         print(f"chip_smoke: the port is missing next to this script: {e}",
               file=sys.stderr)
@@ -415,7 +499,137 @@ def main() -> int:
           f"max|ref| {m:.3e}", flush=True)
     check(d <= 1e-4 * max(1.0, m), f"small window: max|d| {d}")
 
-    # 5. the kernel line and the device line
+    # 5. the 256 Mb path: a whole chromosome plus padding from a genome
+    del bf16_bundle, fp32_bundle, seq2
+    rng = np.random.default_rng(SEED + 4)
+    genome = CodeGenome({
+        "chrM": rng.integers(0, 4, CHROM_BP, dtype=np.uint8),
+        "chr1": rng.integers(0, 4, PAD_CHROM_BP, dtype=np.uint8),
+    })
+    geom = ms.GEOM_256M
+    chrlen = CHROM_BP - CHROM_BP % geom.bin_bp
+    regions = [["chrM", 0, chrlen, "+"],
+               ["chr1", 0, geom.window_bp - chrlen, "+"]]
+    raw_256 = zoo.random_256m_bundle(SEED)
+    fp32_256 = zoo.fold_256m_bundle(raw_256)
+    bf16_256 = zoo.cast_bundle(fp32_256, "bfloat16")
+    t0 = time.perf_counter()
+    sequence, normmats = retrieval.retrieve_multi(regions, genome,
+                                                  models_256m=[fp32_256])
+    retrieve_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq256 = encoders.pack_onehot(sequence)
+    pack_s = time.perf_counter() - t0
+    check(sequence.shape == (1, geom.window_bp, 4)
+          and normmats[0].shape == (geom.bins, geom.bins),
+          f"retrieval: {sequence.shape} {normmats[0].shape}")
+    del sequence, genome
+    print(f"retrieval256: retrieve_multi {retrieve_s:.3f} s (sequence and "
+          f"background of {regions}), pack to uint8 {pack_s:.3f} s",
+          flush=True)
+    before = (cc.fused_first_stage.launches, cc.fused_conv_chain.launches)
+    try:
+        ms.genomepredict_256mb(seq256, "chrM", normmats, chrlen,
+                               ZOOM_TARGETS_256[0], WPOS_256, [raw_256])
+    except ValueError as e:
+        print(f"unfolded 256 Mb bundle on the card: refused ({e})", flush=True)
+    else:
+        raise PhaseError("an unfolded 256 Mb bundle ran on the card")
+    check((cc.fused_first_stage.launches, cc.fused_conv_chain.launches)
+          == before, "the refused 256 Mb request launched a kernel")
+    del raw_256
+    secs256 = {}
+    for dtype, bundle, targets in (
+        (torch.bfloat16, bf16_256, ZOOM_TARGETS_256),
+        (torch.float32, fp32_256, ZOOM_TARGETS_256[:1]),
+    ):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        outs, secs, counts = cascade256_phase(
+            torch, cc, bundle, seq256, normmats[0], chrlen, targets, geom)
+        for k, v in counts.items():
+            launches[dtype][k] += v
+        secs256[dtype] = secs
+        print(f"cascade256 {dtype}: {len(targets)} requests, seconds "
+              f"{[round(s, 4) for s in secs]}, launches {counts} over the "
+              f"requests, starts {[o['start_coords'] for o in outs]}, end "
+              f"coords {[o['end_coords'] for o in outs]}, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        if dtype == torch.bfloat16:
+            bf16_first = outs[0]
+        else:
+            d = max(np.abs(a - b).max() for a, b in zip(
+                outs[0]["predictions"][0], bf16_first["predictions"][0]))
+            m = max(np.abs(a).max() for a in outs[0]["predictions"][0])
+            print(f"  fp32 vs bf16 256 Mb request at {targets[0]}: max|d| "
+                  f"{d:.3e} max|fp32| {m:.3e}", flush=True)
+
+    # the split of a 256 Mb request: the background's NaN fill on the host,
+    # the sequence's copy to the card, encoder + both pyramids alone; the
+    # rest is the decoders, the crops and per-row backgrounds, the outputs
+    t0 = time.perf_counter()
+    ms._filled_background(normmats[0])
+    fill_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev_seq = ms._device_sequence(seq256, "cuda")
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    parts = []
+    with torch.inference_mode():
+        for dtype, bundle, reps in ((torch.bfloat16, bf16_256, 2),
+                                    (torch.float32, fp32_256, 1)):
+            enc_s = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ms._encode_256mb_fwd_rc(bundle, dev_seq)
+                torch.cuda.synchronize()
+                enc_s.append(time.perf_counter() - t0)
+            secs = secs256[dtype]
+            req = statistics.median(secs[1:] if len(secs) > 1 else secs)
+            rest = req - min(enc_s) - fill_s - copy_s
+            parts.append(f"{dtype}: request {req:.4f} s = background fill "
+                         f"(host) {fill_s:.4f} s + sequence to the card "
+                         f"{copy_s:.4f} s + encoder+pyramids {min(enc_s):.4f} "
+                         f"s + decoders/crops/outputs {rest:.4f} s")
+    print("split256 " + "; ".join(parts), flush=True)
+    del dev_seq, bf16_256, fp32_256
+
+    # the 256 Mb cascade on the card against the CPU plain path, 8.192 Mb
+    small = ms.CascadeGeometry(8_192_000, 32_000, 8)
+    cpu_b = zoo.fold_256m_bundle(zoo.random_256m_bundle(SEED + 3, "cpu"))
+    gpu_b = zoo._map_params(cpu_b, lambda t: t.cuda())
+    schr = int(small.window_bp * 0.75) // small.bin_bp * small.bin_bp
+    snm = retrieval.assemble_normmat(
+        [["chrM", 0, schr, "+"], ["chr1", 0, small.window_bp - schr, "+"]],
+        cpu_b.background_cis, cpu_b.background_trans, binsize=small.bin_bp)
+    sseq = seq256[:, : small.window_bp]
+    smpos = int(small.window_bp * 0.74)
+    a = ms.genomepredict_256mb(sseq, "chrM", [snm], schr, smpos,
+                               small.window_bp // 2, [gpu_b], geometry=small)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+    t0 = time.perf_counter()
+    b = ms.genomepredict_256mb(sseq, "chrM", [snm], schr, smpos,
+                               small.window_bp // 2, [cpu_b], geometry=small,
+                               device="cpu")
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    check(a["start_coords"] == b["start_coords"],
+          f"8.192 Mb window: starts {a['start_coords']} != CPU "
+          f"{b['start_coords']}")
+    d = max(np.abs(p - q).max() for p, q in zip(a["predictions"][0],
+                                                b["predictions"][0]))
+    m = max(np.abs(q).max() for q in b["predictions"][0])
+    print(f"8.192 Mb window 256 Mb cascade fp32 card vs CPU plain: max|d| "
+          f"{d:.3e} max|ref| {m:.3e}, starts {a['start_coords']} equal "
+          f"(CPU {cpu_s:.1f} s on {len(os.sched_getaffinity(0))} threads)",
+          flush=True)
+    check(d <= 1e-4 * max(1.0, m), f"8.192 Mb window: max|d| {d}")
+
+    # 6. the kernel line and the device line
     rows = []
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, t in kernel_rows[dtype].items():

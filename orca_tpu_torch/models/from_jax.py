@@ -15,10 +15,14 @@ from typing import Optional
 import numpy as np
 import torch
 
-from orca_tpu_torch.models.zoo import ModelBundle, cast_bundle
+from orca_tpu_torch.models.zoo import Model256MBundle, ModelBundle, cast_bundle
 from orca_tpu_torch.utils.config import get_config, resolve_device
 
-_JAX_BUNDLE = ("orca_tpu.models.zoo", "ModelBundle")
+# the JAX package's bundle classes the pickle loader maps onto the port's
+_JAX_BUNDLES = {
+    ("orca_tpu.models.zoo", "ModelBundle"): ModelBundle,
+    ("orca_tpu.models.zoo", "Model256MBundle"): Model256MBundle,
+}
 
 
 def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
@@ -38,15 +42,26 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     return torch.tensor(arr, device=device, dtype=dtype or torch.float32)
 
 
-def bundle_from_numpy(host, device=None,
-                      dtype: Optional[torch.dtype] = None) -> ModelBundle:
-    """A JAX-package ModelBundle (or one unpickled into the port's class)
-    with numpy leaves -> the port's ModelBundle on `device`."""
+def bundle_from_numpy(host, device=None, dtype: Optional[torch.dtype] = None):
+    """A JAX-package ModelBundle or Model256MBundle (or one unpickled into
+    the port's class) with numpy leaves -> the port's bundle of the same
+    kind on `device`."""
     device = resolve_device(device)
 
     def conv(tree):
         return None if tree is None else params_from_numpy(tree, device, dtype)
 
+    if hasattr(host, "pyramid1"):
+        return Model256MBundle(
+            name=host.name,
+            encoder=conv(host.encoder),
+            pyramid1=conv(host.pyramid1),
+            pyramid=conv(host.pyramid),
+            decoders={int(lv): conv(p) for lv, p in host.decoders.items()},
+            background_cis=np.asarray(host.background_cis),
+            background_trans=float(host.background_trans),
+            upsample_mode=host.upsample_mode,
+        )
     return ModelBundle(
         name=host.name,
         encoder=conv(host.encoder),
@@ -62,12 +77,12 @@ def bundle_from_numpy(host, device=None,
 
 
 class _BundleUnpickler(pickle.Unpickler):
-    """Maps the JAX package's ModelBundle onto the port's class, so loading
+    """Maps the JAX package's bundle classes onto the port's, so loading
     never imports the JAX package."""
 
     def find_class(self, module, name):
-        if (module, name) == _JAX_BUNDLE:
-            return ModelBundle
+        if (module, name) in _JAX_BUNDLES:
+            return _JAX_BUNDLES[(module, name)]
         if module.split(".")[0] == "ml_dtypes":
             raise ValueError(
                 "this bundle was pickled after a bfloat16 cast (ml_dtypes "
@@ -80,8 +95,8 @@ class _BundleUnpickler(pickle.Unpickler):
 
 
 def load_bundle(path: str, device=None, dtype: Optional[str] = None):
-    """Read a float32 bundle written by the JAX package's `zoo.save_bundle`
-    onto `device` (None = CUDA), cast to `dtype` (default: the config's
+    """Read a float32 bundle (32 Mb or 256 Mb) written by the JAX package's
+    `zoo.save_bundle` onto `device` (None = CUDA), cast to `dtype` (default: the config's
     param_dtype). Only load pickles this project wrote: unpickling runs
     code."""
     device = resolve_device(device)

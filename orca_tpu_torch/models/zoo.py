@@ -1,6 +1,7 @@
-"""Model bundles (counterpart of orca_tpu/models/zoo.py): the 32 Mb
-multiscale model's encoder, pyramid and per-level decoder parameters plus
-its distance backgrounds."""
+"""Model bundles (counterpart of orca_tpu/models/zoo.py): each multiscale
+model's encoder, pyramid and per-level decoder parameters plus its distance
+backgrounds (`normmats`/`epss` for the 1-32 Mb models,
+`background_cis`/`background_trans` for the 32-256 Mb models)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from orca_tpu_torch.nn.core import fold_params
 from orca_tpu_torch.utils.config import resolve_device
 
 LEVELS_32M = (1, 2, 4, 8, 16, 32)
+LEVELS_256M = (32, 64, 128, 256)
 
 
 def normmats_from_expectation(expected_log: np.ndarray, levels=LEVELS_32M,
@@ -65,6 +67,26 @@ class ModelBundle:
         ).astype(np.float32)
 
 
+@dataclasses.dataclass
+class Model256MBundle:
+    """A 32-256 Mb model: the 32 Mb model's tower and pyramid (`pyramid1`),
+    then a 3-level pyramid to 1 Mb bins. Parameter trees hold tensors; the
+    backgrounds stay numpy on the host."""
+
+    name: str
+    encoder: dict  # bp -> 4 kb tower
+    pyramid1: dict  # 4 kb -> 128 kb
+    pyramid: dict  # 128 kb -> 1024 kb
+    decoders: Dict[int, dict]
+    background_cis: np.ndarray  # exp() 1D expectation at 32 kb + NaN tail
+    background_trans: float
+    upsample_mode: str = "bilinear"
+
+    @property
+    def levels(self):
+        return tuple(sorted(self.decoders))
+
+
 def _random_normmats(levels=LEVELS_32M, nbins: int = 8000, crop: int = 250):
     # smooth decaying expectation similar in shape to real micro-C
     d = np.arange(nbins, dtype=np.float64)
@@ -83,14 +105,13 @@ def _map_tensors(tree, fn):
     return tree
 
 
-def _map_params(bundle: ModelBundle, fn) -> ModelBundle:
-    return dataclasses.replace(
-        bundle,
-        encoder=_map_tensors(bundle.encoder, fn),
-        pyramid=_map_tensors(bundle.pyramid, fn),
-        decoders={lv: _map_tensors(p, fn) for lv, p in bundle.decoders.items()},
-        decoder_1pt=_map_tensors(bundle.decoder_1pt, fn),
-    )
+def _map_params(bundle, fn):
+    """The bundle (either class) with `fn` applied to every parameter
+    tensor; the numpy backgrounds are left as they are."""
+    return dataclasses.replace(bundle, **{
+        f.name: _map_tensors(getattr(bundle, f.name), fn)
+        for f in dataclasses.fields(bundle)
+    })
 
 
 def random_32m_bundle(seed: int = 0, device=None, *, name: str = "random",
@@ -115,6 +136,43 @@ def random_32m_bundle(seed: int = 0, device=None, *, name: str = "random",
     return _map_params(bundle, lambda t: t.to(device))
 
 
+def random_256m_bundle(seed: int = 0, device=None, *,
+                       name: str = "random_256m") -> Model256MBundle:
+    """A 256 Mb bundle with torch's default conv init from `seed` (float32,
+    BatchNorm unfolded), on `device` (None = CUDA). The cis background is a
+    smooth decay over 8000 bins of 32 kb with a NaN tail, as the JAX
+    package's random bundle has."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    d = np.arange(8000, dtype=np.float64)
+    bundle = Model256MBundle(
+        name=name,
+        encoder=encoders.init_encoder_tower(gen),
+        pyramid1=encoders.init_pyramid(gen, 5, True),
+        pyramid=encoders.init_pyramid(gen, 3, True),
+        decoders={lv: decoders.init_decoder(gen) for lv in LEVELS_256M},
+        background_cis=np.hstack(
+            [np.exp(-1.2 * np.log1p(d) - 3.0), np.repeat(np.nan, 2000)]
+        ),
+        background_trans=float(np.exp(-9.0)),
+    )
+    return _map_params(bundle, lambda t: t.to(device))
+
+
+def fold_256m_bundle(bundle: Model256MBundle) -> Model256MBundle:
+    """Fold all BatchNorms into conv weights for inference (256 Mb family)."""
+    return dataclasses.replace(
+        bundle,
+        encoder=fold_params(bundle.encoder, encoders.encoder_tower_spec()),
+        pyramid1=fold_params(bundle.pyramid1, encoders.pyramid_spec(5, True)),
+        pyramid=fold_params(bundle.pyramid, encoders.pyramid_spec(3, True)),
+        decoders={
+            lv: fold_params(p, decoders.decoder_spec(1))
+            for lv, p in bundle.decoders.items()
+        },
+    )
+
+
 def fold_bundle(bundle: ModelBundle) -> ModelBundle:
     """Fold all BatchNorms into conv weights for inference."""
     return dataclasses.replace(
@@ -136,9 +194,10 @@ def fold_bundle(bundle: ModelBundle) -> ModelBundle:
     )
 
 
-def cast_bundle(bundle: ModelBundle, dtype: str) -> ModelBundle:
-    """Cast a bundle's float32 parameters to `dtype` ('bfloat16' = serving
-    precision; 'float32' returns the bundle unchanged)."""
+def cast_bundle(bundle, dtype: str):
+    """Cast a bundle's (either class) float32 parameters to `dtype`
+    ('bfloat16' = serving precision; 'float32' returns the bundle
+    unchanged)."""
     if dtype in ("float32", None):
         return bundle
     target = getattr(torch, dtype)

@@ -1,11 +1,16 @@
-"""The 32 Mb multiscale zoom-in cascade (counterpart of the 32 Mb part of
-orca_tpu/predict/multiscale.py).
+"""The multiscale zoom-in cascades (counterpart of
+orca_tpu/predict/multiscale.py): `genomepredict` (32 Mb) and
+`genomepredict_256mb` (256 Mb).
 
 One window runs forward and reverse-complement as one batch: the encoder
-tower and pyramid once, then six decoder levels from 32 down to 1, each on a
-crop of the encodings chosen by the zoom target and refining the crop of its
-parent's prediction; the Decoder_1m head adds in at level 1. The two
-orientations are averaged at the end.
+tower and pyramid once, then one decoder level per resolution from the
+coarsest down, each on a crop of the encodings chosen by the zoom target and
+refining the crop of its parent's prediction. The 32 Mb cascade has six
+levels (32 down to 1, the Decoder_1m head added at level 1) and one shared
+background per level; the 256 Mb cascade has four (256 down to 32), a
+background block-averaged per row from the region mosaic's matrix, and zoom
+proposals clamped to the first chromosome. The two orientations are averaged
+at the end.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from orca_tpu_torch.models.zoo import ModelBundle
+from orca_tpu_torch.models.zoo import LEVELS_256M, Model256MBundle, ModelBundle
 from orca_tpu_torch.nn import decoders, encoders
 from orca_tpu_torch.utils.config import get_config, resolve_device
 
@@ -50,6 +55,7 @@ class CascadeGeometry:
 
 
 GEOM_32M = CascadeGeometry(32_000_000, 4000, 250)
+GEOM_256M = CascadeGeometry(256_000_000, 32000, 250)
 
 
 def _device_sequence(sequence, device) -> torch.Tensor:
@@ -287,3 +293,225 @@ def _process_annotation(annotation, starts, window_bins, total_bins=BINS):
                     anno_r.append(((r[0] - newstart) / (newend - newstart), r[1]))
         annos.append(anno_r)
     return annos
+
+
+# --------------------------------------------------------------------------
+# 256 Mb cascade
+# --------------------------------------------------------------------------
+
+
+def _encode_256mb(bundle: Model256MBundle,
+                  seq: torch.Tensor) -> Dict[int, torch.Tensor]:
+    """One-hot (N, L, 4) -> encodings at levels 32..256 (finest L/128000
+    bins): the tower, the 32 Mb pyramid's last output, then the 3-level
+    pyramid."""
+    feats = encoders.apply_encoder_tower(
+        bundle.encoder, seq, halo_bp=get_config().encoder_halo_bp
+    )
+    enc128k = encoders.apply_pyramid(bundle.pyramid1, feats, levels=5,
+                                     up_pass=True)[-1]
+    encs = encoders.apply_pyramid(bundle.pyramid, enc128k, levels=3,
+                                  up_pass=True)
+    return dict(zip(LEVELS_256M, encs))
+
+
+def _encode_256mb_fwd_rc(bundle: Model256MBundle,
+                         seq: torch.Tensor) -> Dict[int, torch.Tensor]:
+    """The encodings of the orientation-batched input: forward rows, then
+    their reverse complements."""
+    seq2 = torch.cat([seq, torch.flip(seq, dims=(1, 2))])
+    return _encode_256mb(bundle, seq2)
+
+
+def _block_average_rows(normmat: torch.Tensor, starts: Sequence[int],
+                        factor: int, crop: int) -> torch.Tensor:
+    """Per-row background crops: the (crop*factor)^2 square of `normmat` at
+    (s, s), block-averaged to (crop, crop), for each start s -> (B, crop,
+    crop)."""
+    n = crop * factor
+    # zoom starts stay inside the window by construction (Python slicing
+    # would not clamp them as a dynamic slice does)
+    assert all(0 <= s <= normmat.shape[0] - n for s in starts), starts
+    return torch.stack([
+        normmat[s : s + n, s : s + n]
+        .reshape(crop, factor, crop, factor).mean(dim=(1, 3))
+        for s in starts
+    ])
+
+
+def _zoom_start_index_256(geom: CascadeGeometry, factor: int, mpos, wpos,
+                          chrlen, start_bins: torch.Tensor) -> torch.Tensor:
+    """Zoom-window starts in [0, half] of the orientation-batched rows:
+    proposals clamped to the first chromosome's bounds [0, chrlen - span/2]
+    in window coordinates, the reverse-complement rows' start mirrored.
+    float32 arithmetic on tensors, in the JAX package's order."""
+    n = start_bins.shape[0] // 2
+    halfwin = geom.window_bp / 2.0
+    binw = float(geom.bin_bp)
+    fac = torch.tensor(factor, dtype=torch.float32, device=start_bins.device)
+    span = geom.crop * geom.bin_bp * fac
+    prop_fwd = (mpos - span / 4) - (wpos - halfwin + start_bins[:n] * binw)
+    prop_rc = (mpos - span / 4) - (
+        wpos + halfwin - start_bins[n:] * binw - span
+    )
+    b0 = 0.0 - (wpos - halfwin)
+    b1 = chrlen - span / 2 - (wpos - halfwin)
+
+    def index(prop):
+        prop = torch.where(b0 < b1,
+                           torch.minimum(torch.maximum(prop, b0), b1), b0)
+        return torch.clamp(torch.floor(prop / (binw * fac)), 0,
+                           geom.half).to(torch.int32)
+
+    return torch.cat([index(prop_fwd),
+                      geom.crop - (index(prop_rc) + geom.half)])
+
+
+def _decode_level_256(bundle: Model256MBundle, geom: CascadeGeometry,
+                      level: int, factor: int, enc_crop: torch.Tensor,
+                      normmat_r: torch.Tensor, start_bins: torch.Tensor,
+                      mpos, wpos, chrlen, coarse):
+    """One 256 Mb decoder level, orientation-batched with per-row
+    backgrounds: the reverse-complement rows use the spatially flipped
+    distance encoding. Returns (pred, next start_bins, next coarse)."""
+    n = enc_crop.shape[0] // 2
+    distenc = torch.log(normmat_r)
+    distenc = torch.cat([distenc[:n], torch.flip(distenc[n:], dims=(1, 2))])
+    pred = decoders.apply_decoder(
+        bundle.decoders[level], enc_crop, distenc[..., None], coarse,
+        upsample_mode=bundle.upsample_mode,
+    )
+    start_index = _zoom_start_index_256(geom, factor, mpos, wpos, chrlen,
+                                        start_bins)
+    next_start = start_bins + start_index * factor
+    coarse_next = _crop_squares(pred, start_index.tolist(), geom.half)
+    return pred, next_start, coarse_next
+
+
+def _cascade_256mb(bundle: Model256MBundle, geom: CascadeGeometry, seq, mpos,
+                   wpos, chrlen, normmat):
+    """Full fwd+RC 4-level cascade with per-row backgrounds; returns
+    (stacked (4, N, crop, crop) float32 maps, starts (4,) int32, forward
+    backgrounds (4, crop, crop)) on the sequence's device."""
+    n = seq.shape[0]
+    device = seq.device
+    encs = _encode_256mb_fwd_rc(bundle, seq)
+    start_bins = torch.zeros(2 * n, dtype=torch.int32, device=device)
+    mpos, wpos, chrlen = (torch.tensor(v, dtype=torch.float32, device=device)
+                          for v in (mpos, wpos, chrlen))
+    normmat = torch.as_tensor(normmat, device=device)
+    coarse = None
+    preds, starts, norms = [], [], []
+    for j, level in enumerate(sorted(bundle.decoders, reverse=True)):
+        factor = geom.bins // (geom.crop * 2**j)  # == level // 8 in production
+        rows = start_bins.tolist()
+        normmat_r = _block_average_rows(normmat, rows, factor, geom.crop)
+        enc_starts = [s // factor for s in rows]
+        assert max(enc_starts) + geom.crop <= encs[level].shape[1], enc_starts
+        enc_crop = _crop_rows(encs[level], enc_starts, geom.crop)
+        starts.append(start_bins[:n])
+        norms.append(normmat_r[0])
+        pred, start_bins, coarse = _decode_level_256(
+            bundle, geom, level, factor, enc_crop, normmat_r, start_bins,
+            mpos, wpos, chrlen, coarse,
+        )
+        preds.append(_combine_orientations(pred)[..., 0])
+    return (torch.stack(preds), torch.stack([s[0] for s in starts]),
+            torch.stack(norms))
+
+
+def _filled_background(normmat: np.ndarray) -> np.ndarray:
+    """A float32 copy of a region mosaic's background with its NaNs (cis
+    distances past the expectation's end) set to its least value."""
+    normmat = np.array(normmat, dtype=np.float32)
+    mask = np.isnan(normmat)
+    if mask.any():
+        normmat[mask] = np.nanmin(normmat[~mask]) if (~mask).any() else 1.0
+    return normmat
+
+
+def genomepredict_256mb(
+    sequence: np.ndarray,
+    mchr: str,
+    normmats: List[np.ndarray],
+    chrlen: int,
+    mpos: int = -1,
+    wpos: int = -1,
+    models: Sequence[Model256MBundle] = (),
+    targets: Optional[List[np.ndarray]] = None,
+    annotation=None,
+    padding_chr: Optional[str] = None,
+    nan_thresh: float = 1.0,
+    geometry: CascadeGeometry = GEOM_256M,
+    device=None,
+) -> dict:
+    """Multiscale 256 Mb prediction: returns a dict with keys
+    predictions/experiments/normmats/start_coords/end_coords/chr/
+    padding_chr/annos; `normmats` is one dict per model from level to its
+    (crop, crop) background.
+
+    sequence: (1, window_bp, 4) one-hot (float, or uint8 quarter-scale).
+    normmats: one (bins, bins) background per model over the region mosaic
+        (retrieval.assemble_normmat); NaNs are filled with the least value.
+    chrlen: length of the first chromosome; zoom windows stay inside it.
+    models: Model256MBundles whose parameters live on `device` (None = CUDA).
+    """
+    device = resolve_device(device)
+    seq = _device_sequence(sequence, device)
+    allpreds, allstarts, allnormmats = [], [], []
+    with torch.inference_mode():
+        for ii, bundle in enumerate(models):
+            preds, starts, norms = _cascade_256mb(
+                bundle, geometry, seq, mpos, wpos, chrlen,
+                _filled_background(normmats[ii]),
+            )
+            allpreds.append(preds.cpu().numpy())
+            allstarts.append(starts.cpu().numpy())
+            allnormmats.append(norms.cpu().numpy())
+
+    lvl_list = sorted(models[0].decoders, reverse=True)
+    factors = [geometry.bins // (geometry.crop * 2**j)
+               for j in range(len(lvl_list))]
+    output = {}
+    output["predictions"] = [
+        [p[j][0] for j in range(len(lvl_list))] for p in allpreds
+    ]
+    if targets is not None:
+        alltargets = []
+        for i in range(len(models)):
+            ts = []
+            for j in range(len(lvl_list)):
+                t = np.asarray(targets[i])
+                if t.ndim == 3 and t.shape[0] == 1:
+                    t = t[0]
+                target_r = _downsample_target(
+                    t, int(allstarts[i][j]), factors[j], nan_thresh,
+                    crop_bins=geometry.crop,
+                )
+                normmat_r = allnormmats[i][j]
+                eps = float(np.nanmin(normmat_r))
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    ts.append(np.log((target_r + eps) / (normmat_r + eps)))
+            alltargets.append(ts)
+        output["experiments"] = alltargets
+    else:
+        output["experiments"] = None
+    starts0 = allstarts[0]
+    halfwin = geometry.window_bp // 2
+    output["start_coords"] = [
+        int(wpos - halfwin + s * geometry.bin_bp) for s in starts0
+    ]
+    output["end_coords"] = [
+        int(min(output["start_coords"][j] + geometry.window_bp / 2**j, chrlen))
+        for j in range(len(lvl_list))
+    ]
+    output["chr"] = mchr
+    output["padding_chr"] = padding_chr
+    output["annos"] = _process_annotation(
+        annotation, starts0, [geometry.crop * f for f in factors],
+        geometry.bins,
+    )
+    output["normmats"] = [
+        {lv: nm[j] for j, lv in enumerate(lvl_list)} for nm in allnormmats
+    ]
+    return output

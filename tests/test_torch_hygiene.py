@@ -1,6 +1,7 @@
 """The port stands alone: orca_tpu_torch, chip_smoke.py and the port's card
-scripts import neither JAX nor anything of orca_tpu, and the port's entry
-points run on CUDA unless the caller asks for the CPU."""
+scripts import neither JAX nor anything of orca_tpu, the port's entry points
+run on CUDA unless the caller asks for the CPU, and a 256 Mb bundle pickled
+by the JAX package loads into the port's class without it."""
 
 import ast
 import os
@@ -65,6 +66,76 @@ def test_entry_points_need_cuda_unless_told_cpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         zoo.random_32m_bundle(0)
     with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.random_256m_bundle(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
         multiscale.genomepredict(None, "chr1", models=())
     with pytest.raises(RuntimeError, match="CUDA"):
+        multiscale.genomepredict_256mb(None, "chr1", [], 0, models=())
+    with pytest.raises(RuntimeError, match="CUDA"):
         zoo.load_bundle("unused.bundle")
+
+
+@pytest.fixture(scope="module")
+def jax_256m_pickle(tmp_path_factory):
+    """(path, JAX bundle) of a JAX-package Model256MBundle (parameters drawn
+    with numpy, BatchNorm unfolded) pickled by its `zoo.save_bundle`."""
+    import numpy as np
+
+    from orca_tpu.models import zoo as jzoo
+    from orca_tpu.nn import decoders as jdec
+    from orca_tpu.nn import encoders as jenc
+    from test_torch_encoders import numpy_tree
+
+    rng = np.random.RandomState(3)
+    bundle = jzoo.Model256MBundle(
+        name="numpy256",
+        encoder=numpy_tree(jenc.encoder_tower_spec(), rng),
+        pyramid1=numpy_tree(jenc.pyramid_spec(5, True), rng),
+        pyramid=numpy_tree(jenc.pyramid_spec(3, True), rng),
+        decoders={lv: numpy_tree(jdec.decoder_spec(1), rng)
+                  for lv in jzoo.LEVELS_256M},
+        background_cis=np.hstack([np.exp(-np.arange(80.0)),
+                                  np.repeat(np.nan, 20)]),
+        background_trans=float(np.exp(-9.0)),
+        upsample_mode="nearest",
+    )
+    path = str(tmp_path_factory.mktemp("bundle") / "orca_random_256m.bundle")
+    jzoo.save_bundle(bundle, path)
+    return path, bundle
+
+
+def test_load_256m_bundle_needs_cuda_unless_told_cpu(jax_256m_pickle):
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    from orca_tpu_torch.models import zoo
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.load_bundle(jax_256m_pickle[0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_load_256m_bundle_round_trip(jax_256m_pickle, dtype):
+    """A JAX-package Model256MBundle pickle loads into the port's class, with
+    every parameter equal (rounded once to bf16 for 'bfloat16') and the
+    backgrounds unchanged."""
+    import jax
+    import numpy as np
+
+    from orca_tpu_torch.models import zoo
+
+    path, want = jax_256m_pickle
+    got = zoo.load_bundle(path, device="cpu", dtype=dtype)
+    assert isinstance(got, zoo.Model256MBundle)
+    assert got.name == want.name and got.levels == zoo.LEVELS_256M
+    assert got.upsample_mode == want.upsample_mode
+    np.testing.assert_array_equal(got.background_cis, want.background_cis)
+    assert got.background_trans == want.background_trans
+    for field in ("encoder", "pyramid1", "pyramid", "decoders"):
+        w = jax.tree.leaves(getattr(want, field))
+        g = jax.tree.leaves(getattr(got, field))
+        assert len(g) == len(w) > 0, field
+        for a, b in zip(g, w):
+            assert a.dtype == getattr(torch, dtype)
+            np.testing.assert_array_equal(
+                a.float().numpy(),
+                torch.tensor(b).to(getattr(torch, dtype)).float().numpy())
