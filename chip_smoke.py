@@ -35,15 +35,29 @@ Phases (any failure exits non-zero before the final line):
      250x250 and the end coordinates inside the chromosome; then the
      encoder alone, for the split; then the 256 Mb cascade on the card
      against the CPU plain path on an 8.192 Mb window;
-  6. one JSON line with every kernel (its launches summed over the 32 Mb and
-     256 Mb requests), then the device line.
+  6. the variant screens, through the entry points a user calls: random
+     folded bundles (two 32 Mb, two 256 Mb) pickled by `zoo.save_bundle`
+     and loaded by `load_resources` in bf16 onto the card (checked bf16,
+     folded, no genome or targets); then `process_dup` (a 0.8 Mb tandem
+     duplication, both 32 Mb models: 3 windows) and `process_del` (a 2 Mb
+     deletion with the 256 Mb models: 3 whole-chromosome requests) on the
+     phase-5 genome, the launch counters set to 0 just before each screen and
+     checked just after (48/288 and 384/2304), the maps checked finite,
+     symmetric and 250x250, the dup's ref.l held to a direct `genomepredict`
+     on the same window, the del's end coordinates inside each chromosome;
+     one `screen` line each (host seconds, launches, peak device memory,
+     peak host RSS). No plots: matplotlib is never imported;
+  7. one JSON line with every kernel (its launches summed over every request
+     of phases 4-6), then the device line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
+import resource
 import statistics
 import subprocess
 import sys
@@ -347,6 +361,200 @@ def cascade256_phase(torch, cc, bundle, seq, normmat, chrlen, targets, geom):
     return outs, secs, total
 
 
+def peak_rss_gib():
+    """The process's peak resident host memory so far (Linux: KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+class Timed:
+    """Accumulates the host seconds of the calls to `module.name` while
+    installed (the pipelines and cascades look their callees up at call
+    time); `_device_sequence` is the one-hot's packing and copy to the
+    card."""
+
+    def __init__(self, torch, module, name):
+        self.torch, self.module, self.name = torch, module, name
+        self.fn, self.seconds, self.calls = getattr(module, name), 0.0, 0
+
+    def __call__(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        self.torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def load_phase(torch, zoo, resources, tmp):
+    """Random folded bundles pickled by the port's save_bundle into a model
+    dir, then `load_resources` in bf16 onto the card; returns the
+    resources."""
+    model_dir = os.path.join(tmp, "models")
+    resource_dir = os.path.join(tmp, "resources")
+    os.makedirs(model_dir)
+    os.makedirs(resource_dir)
+    t0 = time.perf_counter()
+    for name, seed in (("h1esc", SEED), ("hff", SEED + 1)):
+        zoo.save_bundle(zoo.fold_bundle(zoo.random_32m_bundle(seed)),
+                        os.path.join(model_dir, f"orca_{name}.bundle"))
+    for name, seed in (("h1esc_256m", SEED), ("hff_256m", SEED + 1)):
+        zoo.save_bundle(zoo.fold_256m_bundle(zoo.random_256m_bundle(seed)),
+                        os.path.join(model_dir, f"orca_{name}.bundle"))
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = resources.load_resources(models=("32M", "256M"),
+                                   model_dir=model_dir,
+                                   resource_dir=resource_dir,
+                                   dtype="bfloat16")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    names = ["h1esc", "hff", "h1esc_256m", "hff_256m"]
+    check(list(res.models) == names, f"load_resources: {list(res.models)}")
+    for name in names:
+        tensors, keys = tree_leaves(res.models[name], torch)
+        check(tensors and all(t.dtype == torch.bfloat16 and t.is_cuda
+                              for t in tensors),
+              f"{name}: parameters not all bf16 on the card")
+        check("bn" not in keys, f"{name}: BatchNorm left in the parameters")
+    check(res.genome is None and res.target_available is False,
+          "load_resources: a genome or targets without resource files")
+    print(f"load_resources: 4 bundles (2 x 32 Mb, 2 x 256 Mb) pickled in "
+          f"{save_s:.3f} s, loaded, folded and cast to bf16 on the card in "
+          f"{load_s:.3f} s; genome None, target_available False", flush=True)
+    return res
+
+
+def tree_leaves(bundle, torch):
+    """(tensors, dict keys) of all of a bundle's fields, nested trees
+    walked."""
+    tensors, keys = [], set()
+
+    def walk(tree):
+        if isinstance(tree, dict):
+            keys.update(tree)
+            for v in tree.values():
+                walk(v)
+        elif isinstance(tree, (list, tuple)):
+            for v in tree:
+                walk(v)
+        elif isinstance(tree, torch.Tensor):
+            tensors.append(tree)
+
+    for field in dataclasses.fields(bundle):
+        walk(getattr(bundle, field.name))
+    return tensors, keys
+
+
+def check_maps(outs, n_levels, tag):
+    for i, out in enumerate(outs):
+        for m, preds in enumerate(out["predictions"]):
+            check(len(preds) == n_levels, f"{tag} output {i}: {len(preds)} maps")
+            for j, p in enumerate(preds):
+                check(p.shape == (250, 250), f"{tag} {i}/{m}/{j}: {p.shape}")
+                check(np.isfinite(p).all(), f"{tag} {i}/{m}/{j}: non-finite")
+                check(np.array_equal(p, p.T), f"{tag} {i}/{m}/{j}: asymmetric")
+
+
+def screens_phase(torch, cc, zoo, genome):
+    """`load_resources`, then `process_dup` on a 32 Mb window and
+    `process_del` on a whole chromosome with both models of each family, the
+    launch counters set to 0 just before each screen and read just after;
+    returns the launches summed over both screens."""
+    import tempfile
+
+    from orca_tpu_torch.predict import (multiscale as ms, pipelines,
+                                        resources, retrieval)
+    from orca_tpu_torch.utils.coords import coord_clip
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+        res = load_phase(torch, zoo, resources, tmp)
+    total = {"fused_first_stage": 0, "fused_conv_chain": 0}
+
+    def run(tag, fn, want, timers=()):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cc.fused_first_stage.launches = 0
+        cc.fused_conv_chain.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {"fused_first_stage": cc.fused_first_stage.launches,
+                  "fused_conv_chain": cc.fused_conv_chain.launches}
+        parts = "".join(f", {t.name} {t.calls} calls {t.seconds:.3f} s"
+                        for t in timers)
+        print(f"screen {tag}: seconds {secs:.3f}{parts}, launches {counts} "
+              f"(expected {want}), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, peak "
+              f"host RSS {peak_rss_gib():.2f} GiB", flush=True)
+        check(counts == want, f"screen {tag}: launches {counts} != {want}")
+        for k in total:
+            total[k] += counts[k]
+        return outs
+
+    # 32 Mb: a 0.8 Mb tandem duplication, both models: 3 windows x 2 models
+    models32 = res.bundles(["h1esc", "hff"])
+    mstart, mend = 60_000_000, 60_800_000
+    groups = 3 * 2 * 8
+    with Timed(torch, pipelines, "genomepredict") as t_pred, \
+            Timed(torch, ms, "_device_sequence") as t_seq:
+        outs = run("dup32", lambda: pipelines.process_dup(
+            "chrM", mstart, mend, genome, models32),
+            {"fused_first_stage": groups, "fused_conv_chain": 6 * groups},
+            (t_pred, t_seq))
+    check(len(outs) == 3, f"process_dup: {len(outs)} outputs")
+    check_maps(outs, 6, "dup32")
+    # ref.l against a direct genomepredict on the same window (not counted)
+    wpos = coord_clip(mstart, genome.chr_len("chrM"))
+    direct = ms.genomepredict(
+        genome.get_encoding_from_coords("chrM", wpos - 16_000_000,
+                                        wpos + 16_000_000)[None],
+        "chrM", mstart, wpos, models32)
+    check(outs[0]["start_coords"] == direct["start_coords"],
+          "dup32 ref.l: zoom starts differ from a direct genomepredict")
+    d = max(np.abs(a - b).max() for pa, pb in zip(outs[0]["predictions"],
+                                                  direct["predictions"])
+            for a, b in zip(pa, pb))
+    m = max(np.abs(b).max() for pb in direct["predictions"] for b in pb)
+    print(f"  dup32 ref.l vs a direct genomepredict: max|d| {d:.3e} "
+          f"max|ref| {m:.3e}", flush=True)
+    check(d <= 1e-4 * max(1.0, m), f"dup32 ref.l: max|d| {d}")
+    del outs, direct
+
+    # 256 Mb: a 2 Mb deletion, both models: 3 requests x 2 models
+    models256 = res.bundles(["h1esc_256m", "hff_256m"])
+    mstart, mend = 60_000_000, 62_000_000
+    groups = 3 * 2 * 64
+    with Timed(torch, retrieval, "retrieve_multi") as t_ret, \
+            Timed(torch, pipelines, "genomepredict_256mb") as t_pred, \
+            Timed(torch, ms, "_device_sequence") as t_seq:
+        outs = run("del256", lambda: pipelines.process_del(
+            "chrM", mstart, mend, genome, models256,
+            window_radius=128_000_000, padding_chr="chr1"),
+            {"fused_first_stage": groups, "fused_conv_chain": 6 * groups},
+            (t_ret, t_pred, t_seq))
+    chrlen = genome.chr_len("chrM")
+    alt = chrlen - (mend - mstart)
+    limits = [chrlen - chrlen % 32000] * 2 + [alt - alt % 32000]
+    check(len(outs) == 3, f"process_del: {len(outs)} outputs")
+    check_maps(outs, 4, "del256")
+    for out, limit in zip(outs, limits):
+        check(max(out["end_coords"]) <= limit,
+              f"del256: end coordinates {out['end_coords']} past {limit}")
+        check(out["padding_chr"] == "chr1", f"del256: {out['padding_chr']}")
+    print(f"  del256 end coordinates {[o['end_coords'] for o in outs]} "
+          f"(chromosome {limits}), padding_chr chr1", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -523,7 +731,7 @@ def main() -> int:
     check(sequence.shape == (1, geom.window_bp, 4)
           and normmats[0].shape == (geom.bins, geom.bins),
           f"retrieval: {sequence.shape} {normmats[0].shape}")
-    del sequence, genome
+    del sequence
     print(f"retrieval256: retrieve_multi {retrieve_s:.3f} s (sequence and "
           f"background of {regions}), pack to uint8 {pack_s:.3f} s",
           flush=True)
@@ -628,8 +836,13 @@ def main() -> int:
           f"(CPU {cpu_s:.1f} s on {len(os.sched_getaffinity(0))} threads)",
           flush=True)
     check(d <= 1e-4 * max(1.0, m), f"8.192 Mb window: max|d| {d}")
+    del cpu_b, gpu_b, seq256, normmats
 
-    # 6. the kernel line and the device line
+    # 6. the variant screens, through the entry points a user calls
+    for k, v in screens_phase(torch, cc, zoo, genome).items():
+        launches[torch.bfloat16][k] += v
+
+    # 7. the kernel line and the device line
     rows = []
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, t in kernel_rows[dtype].items():

@@ -96,7 +96,8 @@ class _BundleUnpickler(pickle.Unpickler):
 
 def load_bundle(path: str, device=None, dtype: Optional[str] = None):
     """Read a float32 bundle (32 Mb or 256 Mb) written by the JAX package's
-    `zoo.save_bundle` onto `device` (None = CUDA), cast to `dtype` (default: the config's
+    `zoo.save_bundle` or the port's onto `device` (None = CUDA), cast to
+    `dtype` (default: the config's
     param_dtype). Only load pickles this project wrote: unpickling runs
     code."""
     device = resolve_device(device)

@@ -6,6 +6,7 @@ backgrounds (`normmats`/`epss` for the 1-32 Mb models,
 from __future__ import annotations
 
 import dataclasses
+import pickle
 from typing import Dict, Optional
 
 import numpy as np
@@ -207,9 +208,53 @@ def cast_bundle(bundle, dtype: str):
     )
 
 
+def save_bundle(bundle, path: str) -> None:
+    """Pickle a bundle (either class) with its parameters as float32 numpy
+    arrays, the form the JAX package's `zoo.save_bundle` writes; `load_bundle`
+    reads both."""
+    host = _map_params(bundle, lambda t: t.detach().float().cpu().numpy())
+    with open(path, "wb") as f:
+        pickle.dump(host, f)
+
+
 def load_bundle(path: str, device=None, dtype: Optional[str] = None):
-    """Read a bundle pickled by the JAX package's `zoo.save_bundle` (see
-    models.from_jax.load_bundle)."""
+    """Read a bundle pickled by `save_bundle` or by the JAX package's
+    `zoo.save_bundle` (see models.from_jax.load_bundle)."""
     from orca_tpu_torch.models.from_jax import load_bundle as _load
 
     return _load(path, device=device, dtype=dtype)
+
+
+def _needs(item: str, what: str):
+    raise NotImplementedError(
+        f"{what} is not ported to orca_tpu_torch yet (ROADMAP {item}); "
+        "convert the model with the JAX package and save it as an "
+        "orca_<name>.bundle pickle"
+    )
+
+
+def load_32m_bundle(model_dir: str, resource_dir: str, name: str,
+                    fold: bool = True, nbins: int = 8000,
+                    crop: int = 250) -> ModelBundle:
+    """A 1-32 Mb bundle from the reference's torch statedicts: needs the
+    statedict converter (ROADMAP A13)."""
+    _needs("A13", "loading a 32 Mb bundle from torch statedicts")
+
+
+def load_256m_bundle(model_dir: str, resource_dir: str, name: str,
+                     fold: bool = True) -> Model256MBundle:
+    """A 32-256 Mb bundle from the reference's torch statedicts: needs the
+    statedict converter (ROADMAP A13)."""
+    _needs("A13", "loading a 256 Mb bundle from torch statedicts")
+
+
+def load_leukemia_bundle(model_dir: str, resource_dir: str, name: str,
+                         fold: bool = True) -> ModelBundle:
+    """A multi-cell-type leukemia bundle: needs the variant families
+    (ROADMAP A12)."""
+    _needs("A12", "the leukemia model family")
+
+
+def load_1m_bundle(model_dir: str, resource_dir: str, name: str):
+    """A standalone 1 Mb bundle: needs the 1 Mb family (ROADMAP A11)."""
+    _needs("A11", "the 1 Mb model family")

@@ -1,7 +1,9 @@
 """The port stands alone: orca_tpu_torch, chip_smoke.py and the port's card
 scripts import neither JAX nor anything of orca_tpu, the port's entry points
-run on CUDA unless the caller asks for the CPU, and a 256 Mb bundle pickled
-by the JAX package loads into the port's class without it."""
+(load_resources and the process_* pipelines included) run on CUDA unless the
+caller asks for the CPU, the prediction API and the plots import without
+matplotlib, and a 256 Mb bundle pickled by the JAX package loads into the
+port's class without it."""
 
 import ast
 import os
@@ -73,6 +75,59 @@ def test_entry_points_need_cuda_unless_told_cpu():
         multiscale.genomepredict_256mb(None, "chr1", [], 0, models=())
     with pytest.raises(RuntimeError, match="CUDA"):
         zoo.load_bundle("unused.bundle")
+
+
+class _ReachedTheCascade(Exception):
+    pass
+
+
+def test_resources_and_pipelines_need_cuda_unless_told_cpu(tmp_path,
+                                                           monkeypatch):
+    """load_resources and the process_* pipelines raise without CUDA unless
+    given device='cpu', which a pipeline passes on to the cascade."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    from orca_tpu_torch.predict import multiscale, pipelines, resources
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resources.load_resources(models=(), model_dir=str(tmp_path),
+                                 resource_dir=str(tmp_path))
+    res = resources.load_resources(models=(), model_dir=str(tmp_path),
+                                   resource_dir=str(tmp_path), device="cpu")
+    assert res.models == {} and res.genome is None
+
+    def reached(sequence, device):
+        raise _ReachedTheCascade(str(device))
+
+    monkeypatch.setattr(multiscale, "_device_sequence", reached)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pipelines.process_seqstr("ACGT" * 100, 50, None, [],
+                                 window_radius=1000)
+    with pytest.raises(_ReachedTheCascade, match="cpu"):
+        pipelines.process_seqstr("ACGT" * 100, 50, None, [],
+                                 window_radius=1000, device="cpu")
+
+
+def test_predict_and_viz_import_without_matplotlib():
+    """The card's machine has no matplotlib: the prediction API and the
+    plotting module import without it (matplotlib is needed only to draw)."""
+    code = (
+        "import sys\n"
+        "sys.modules['matplotlib'] = None\n"
+        "import orca_tpu_torch.predict, orca_tpu_torch.viz\n"
+        "import orca_tpu_torch.colormaps\n"
+        "from orca_tpu_torch.predict import pipelines\n"
+        "pipelines._maybe_plot({}, None, '', pipelines.WR32, None)\n"
+        "try:\n"
+        "    orca_tpu_torch.viz.contact_cmap()\n"
+        "except ImportError:\n"
+        "    print('drawing needs matplotlib')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "drawing needs matplotlib"
 
 
 @pytest.fixture(scope="module")
