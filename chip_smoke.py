@@ -47,8 +47,27 @@ Phases (any failure exits non-zero before the final line):
      on the same window, the del's end coordinates inside each chromosome;
      one `screen` line each (host seconds, launches, peak device memory,
      peak host RSS). No plots: matplotlib is never imported;
-  7. one JSON line with every kernel (its launches summed over every request
-     of phases 4-6), then the device line.
+  7. the standalone 1 Mb family on 1 Mb windows of the phase-5 genome with a
+     random bundle (32 tracks): each kernel at the 1 Mb stage shapes (8 rows
+     of one 1 Mb piece, valid everywhere), held against its plain version
+     and timed; the unfolded bundle refused before any launch; then, folded,
+     `screen_windows` over 8 windows in batches of 4 and `predict_1m` with
+     tracks and the reverse complement on 4 (bf16), and one fp32 call, the
+     launch counters set to 0 just before each call and checked (1 and 6 per
+     call), the maps checked finite, symmetric and 250x250 and the tracks in
+     [0, 1]; then one window on the card against the CPU plain path;
+  8. the warm server through the command line: `build-genome` on a
+     synthetic FASTA (two 34 Mb chromosomes) into a temporary `_smoke_*`
+     resource dir, two random folded 32 Mb bundles pickled into its model
+     dir, then `cli.main(["serve", ..., "--prewarm", "32M"])` in this
+     process in bf16, reading one command of each prediction mode with
+     --no-target, a malformed line and `quit`. The drawing functions are
+     replaced by a recorder of the file names (the card's machine has no
+     matplotlib). Checked: WARM, READY, 5 OK and 1 ERR; each .pkl's maps;
+     the region .pkl against a direct `process_region`; each command's
+     launches against its windows x 2 models x 8 groups;
+  9. one JSON line with every kernel (its launches summed over every request
+     of phases 4-8), then the device line.
 """
 
 from __future__ import annotations
@@ -77,6 +96,7 @@ CHROM_BP = 145_100_000
 PAD_CHROM_BP = 120_000_000
 WPOS_256 = 128_000_000
 ZOOM_TARGETS_256 = (64_000_000, 143_000_000)
+ONE_MB_WINDOW = 1_000_000  # the standalone 1 Mb model's window
 
 # Published dense peaks (NVIDIA data sheets): (bf16 FLOP/s, fp32 FLOP/s on
 # the CUDA cores, memory bytes/s), keyed by a substring of the card's name.
@@ -167,23 +187,27 @@ def demangler(nvcc):
     return run
 
 
-def stage_shapes():
-    """Per stage: (input length, cin, c, out_pool, resolution) of one
-    production group (a 4 Mb block with its 112 kb halos)."""
+def stage_shapes(input_bp=BLOCK_BP + 2 * HALO_BP):
+    """Per stage: (input length, cin, c, out_pool, resolution) of an encoder
+    input of `input_bp` (default: one production group, a 4 Mb block with its
+    112 kb halos)."""
     from orca_tpu_torch.nn.encoders import STAGES
 
     pools = [p for _, _, p in STAGES] + [1]
-    length, res, out = BLOCK_BP + 2 * HALO_BP, 1, []
+    res, out = 1, []
     for i, (cin, c, pool) in enumerate(STAGES):
         res *= pool or 1
-        out.append((length // res, cin, c, pools[i + 1], res))
+        out.append((input_bp // res, cin, c, pools[i + 1], res))
     return out
 
 
-def kernel_phase(torch, enc_params, dtype, peaks, sms):
-    """Each kernel at production shapes against its plain version; returns
-    {kernel: {ms, plain_ms, bound_ms, bound_by, max_abs_err}} summed over the
-    kernel's launches in one group."""
+def kernel_phase(torch, enc_params, dtype, peaks, sms, piece_bp=None,
+                 rows=2):
+    """Each kernel against its plain version, then timed; returns {kernel:
+    {ms, plain_ms, bound_ms, bound_by, max_abs_err}} summed over the kernel's
+    launches in one tower run. piece_bp None: a production group (2 rows of a
+    4 Mb block with its halos, row 1 masked as the window's last block); else
+    `rows` rows of one `piece_bp` piece, valid everywhere (the 1 Mb model)."""
     from orca_tpu_torch.ops.kernels import conv_chain as cc
 
     lp, cp = enc_params["lconv"], enc_params["conv"]
@@ -194,16 +218,21 @@ def kernel_phase(torch, enc_params, dtype, peaks, sms):
     flops_peak = peaks[0] if dtype == torch.bfloat16 else peaks[1]
     esize = torch.finfo(dtype).bits // 8
     rng = np.random.RandomState(SEED)
-    seg = BLOCK_BP + 2 * HALO_BP
-    codes = rng.randint(0, 4, size=(2, seg))
+    seg = piece_bp or BLOCK_BP + 2 * HALO_BP
+    tag = "stage" if piece_bp is None else f"stage{piece_bp // 1_000_000}mb"
+    codes = rng.randint(0, 4, size=(rows, seg))
     x = torch.from_numpy(np.eye(4, dtype=np.uint8)[codes] * 4).cuda()
     totals = {}
-    for i, (length, cin, c, pool, res) in enumerate(stage_shapes()):
-        # row 0 valid everywhere; row 1 is the window's last block, whose
-        # valid range ends 112 kb early, and starts after a masked halo
-        vs = torch.tensor([0, HALO_BP // res], dtype=torch.int32, device="cuda")
-        ve = torch.tensor([length, (seg - 2 * HALO_BP) // res],
-                          dtype=torch.int32, device="cuda")
+    for i, (length, cin, c, pool, res) in enumerate(stage_shapes(seg)):
+        if piece_bp is None:
+            # row 0 valid everywhere; row 1 is the window's last block, whose
+            # valid range ends 112 kb early, and starts after a masked halo
+            vs = [0, HALO_BP // res]
+            ve = [length, (seg - 2 * HALO_BP) // res]
+        else:
+            vs, ve = [0] * rows, [length] * rows
+        vs = torch.tensor(vs, dtype=torch.int32, device="cuda")
+        ve = torch.tensor(ve, dtype=torch.int32, device="cuda")
         if i == 0:
             name = "fused_first_stage"
             convs = [wb(lp[0][0]), wb(lp[0][1]), wb(cp[0][0]), wb(cp[0][1])]
@@ -221,16 +250,17 @@ def kernel_phase(torch, enc_params, dtype, peaks, sms):
         ref = plain(*args, **kw)
         torch.cuda.synchronize()
         check(got.shape == ref.shape and got.dtype == ref.dtype,
-              f"stage {i}: shape/dtype {got.shape} {got.dtype} vs "
+              f"{tag} {i}: shape/dtype {got.shape} {got.dtype} vs "
               f"{ref.shape} {ref.dtype}")
         d = (got.float() - ref.float()).abs().max().item()
         m = ref.float().abs().max().item()
-        check(np.isfinite(d) and np.isfinite(m), f"stage {i}: non-finite")
+        check(np.isfinite(d) and np.isfinite(m), f"{tag} {i}: non-finite")
         tol = 1e-4 * max(1.0, m) if dtype == torch.float32 else 2e-2 * m
         reps = 5 if length > 100_000 else 20
         ms = time_ms(torch, lambda: kern(*args, **kw), reps)
         plain_ms = time_ms(torch, lambda: plain(*args, **kw), reps)
-        ops = 2 * 9 * sum(w.shape[1] * w.shape[2] for w, _ in convs) * 2 * length
+        ops = (2 * 9 * sum(w.shape[1] * w.shape[2] for w, _ in convs) * rows
+               * length)
         nbytes = (x.numel() * x.element_size() + got.numel() * esize
                   + sum((w.numel() + b.numel()) * esize for w, b in convs)
                   + 4 * vs.numel() * 2)
@@ -238,14 +268,14 @@ def kernel_phase(torch, enc_params, dtype, peaks, sms):
         tile = cc.plan_tile(x.shape[0], length, pool, cin, c, dtype, i == 0,
                             sms)
         blocks = x.shape[0] * -(-length // tile)
-        print(f"  stage {i} {name} {str(dtype)[6:]}: in {tuple(x.shape)} "
+        print(f"  {tag} {i} {name} {str(dtype)[6:]}: in {tuple(x.shape)} "
               f"out {tuple(got.shape)} max|d| {d:.3e} max|ref| {m:.3e} "
               f"(tol {tol:.3e}) kernel {ms:.3f} ms plain {plain_ms:.3f} ms "
               f"bound {max(t_ops, t_bytes):.4f} ms "
               f"({ops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB) tile {tile} "
               f"blocks {blocks} {ops / ms / 1e9:.1f} TFLOP/s "
               f"{max(t_ops, t_bytes) / ms:.1%} of bound", flush=True)
-        check(d <= tol, f"stage {i} {name}: max|d| {d} > {tol}")
+        check(d <= tol, f"{tag} {i} {name}: max|d| {d} > {tol}")
         t = totals.setdefault(name, dict(ms=0.0, plain_ms=0.0, t_ops=0.0,
                                          t_bytes=0.0, max_abs_err=0.0))
         t["ms"] += ms
@@ -555,6 +585,349 @@ def screens_phase(torch, cc, zoo, genome):
     return total
 
 
+def check_1m(pred, tracks, n, num_1d, tag):
+    bins = ONE_MB_WINDOW // 4000
+    check(pred.shape == (n, bins, bins, 1), f"{tag}: map {pred.shape}")
+    check(np.isfinite(pred).all(), f"{tag}: non-finite map")
+    check(np.array_equal(pred, pred.transpose(0, 2, 1, 3)),
+          f"{tag}: map not symmetric")
+    if tracks is not None:
+        check(tracks.shape == (n, bins, num_1d),
+              f"{tag}: tracks {tracks.shape}")
+        check(((tracks >= 0) & (tracks <= 1)).all(),
+              f"{tag}: tracks outside [0, 1]")
+
+
+def onemb_phase(torch, cc, zoo, genome, peaks, sms):
+    """The standalone 1 Mb family on windows of the phase-5 genome: the
+    kernels at its stage shapes, the unfolded bundle refused, then
+    `screen_windows` (bf16), `predict_1m` with tracks and the reverse
+    complement (bf16) and one fp32 call, the launch counters set to 0 just
+    before each call and read just after; then one window on the card
+    against the CPU plain path. Returns {dtype: launches}."""
+    from orca_tpu_torch.nn import encoders
+    from orca_tpu_torch.predict import onemb
+
+    num_1d, window = 32, ONE_MB_WINDOW
+    starts = [10_000_000 + 7_000_000 * k for k in range(8)]
+    seqs = np.stack([genome.get_encoding_from_coords("chrM", s, s + window)
+                     for s in starts])
+    raw = zoo.random_1m_bundle(SEED, num_1d=num_1d)
+    fp32 = zoo.fold_1m_bundle(raw)
+    bf16 = zoo.cast_bundle(fp32, "bfloat16")
+
+    # each kernel at the 1 Mb stage shapes: 4 windows and their reverse
+    # complements, one piece per row
+    for dtype, bundle in ((torch.bfloat16, bf16), (torch.float32, fp32)):
+        print(f"kernels {dtype} at the 1 Mb stage shapes:", flush=True)
+        rows = kernel_phase(torch, bundle.net["encoder"], dtype, peaks, sms,
+                            piece_bp=window, rows=8)
+        print(f"kernels1m {str(dtype)[6:]}: " + "; ".join(
+            f"{name} kernel {t['ms']:.3f} ms plain {t['plain_ms']:.3f} ms "
+            f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}) max|d| "
+            f"{t['max_abs_err']:.3e}" for name, t in rows.items()), flush=True)
+
+    def counts():
+        return {"fused_first_stage": cc.fused_first_stage.launches,
+                "fused_conv_chain": cc.fused_conv_chain.launches}
+
+    before = counts()
+    try:
+        onemb.predict_1m(raw, seqs[:4])
+    except ValueError as e:
+        print(f"unfolded 1 Mb bundle on the card: refused ({e})", flush=True)
+    else:
+        raise PhaseError("an unfolded 1 Mb bundle ran on the card")
+    check(counts() == before, "the refused 1 Mb call launched a kernel")
+    del raw
+
+    launches = {torch.bfloat16: dict.fromkeys(before, 0),
+                torch.float32: dict.fromkeys(before, 0)}
+
+    def run(tag, dtype, calls, fn):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cc.fused_first_stage.launches = 0
+        cc.fused_conv_chain.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = counts()
+        want = {"fused_first_stage": calls, "fused_conv_chain": 6 * calls}
+        print(f"onemb {tag}: seconds {secs:.3f}, launches {got} (expected "
+              f"{want}), peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        check(got == want, f"onemb {tag}: launches {got} != {want}")
+        for k in got:
+            launches[dtype][k] += got[k]
+        return out, secs
+
+    screen, secs = run("screen_windows bf16 (8 windows, batch 4)",
+                       torch.bfloat16, 2,
+                       lambda: onemb.screen_windows(bf16, seqs, batch_size=4))
+    check_1m(screen, None, 8, num_1d, "screen_windows")
+    print(f"  screen_windows: {secs / len(seqs):.4f} s per window", flush=True)
+    with Timed(torch, onemb, "_device_sequence") as t_seq:
+        (pred, tracks), secs = run(
+            "predict_1m bf16 (4 windows, tracks, RC average)", torch.bfloat16,
+            1, lambda: onemb.predict_1m(bf16, seqs[:4], with_1d=True,
+                                        rc_average=True))
+    check_1m(pred, tracks, 4, num_1d, "predict_1m bf16")
+    # the split of that call: the tower alone on the same 8 rows (not
+    # counted); the rest is the decoder, the track head and the RC average
+    x = onemb._device_sequence(seqs[:4], "cuda")
+    x = torch.cat([x, torch.flip(x, dims=(1, 2))])
+    tower_s = []
+    with torch.inference_mode():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            encoders.apply_encoder_tower(bf16.net["encoder"], x)
+            torch.cuda.synchronize()
+            tower_s.append(time.perf_counter() - t0)
+    del x
+    print(f"  predict_1m bf16: {secs / 4:.4f} s per window; split: call "
+          f"{secs:.4f} s = one-hot checks, packing and copy "
+          f"{t_seq.seconds:.4f} s + tower {min(tower_s):.4f} s + decoder, "
+          f"head, RC average and outputs "
+          f"{secs - t_seq.seconds - min(tower_s):.4f} s", flush=True)
+    pred32, secs = run("predict_1m fp32 (4 windows)", torch.float32, 1,
+                       lambda: onemb.predict_1m(fp32, seqs[:4]))
+    check_1m(pred32, None, 4, num_1d, "predict_1m fp32")
+    d = np.abs(pred32 - screen[:4]).max()
+    print(f"  predict_1m fp32: {secs / 4:.4f} s per window; fp32 vs bf16 "
+          f"max|d| {d:.3e} max|fp32| {np.abs(pred32).max():.3e}", flush=True)
+
+    # one full window on the card against the CPU plain path (not counted)
+    cpu_b = zoo._map_params(fp32, lambda t: t.cpu())
+    a = onemb.predict_1m(fp32, seqs[:1], with_1d=True, rc_average=True)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+    t0 = time.perf_counter()
+    b = onemb.predict_1m(cpu_b, seqs[:1], with_1d=True, rc_average=True,
+                         device="cpu")
+    cpu_s = time.perf_counter() - t0
+    torch.set_num_threads(threads)
+    for got, ref, what in zip(a, b, ("map", "tracks")):
+        d = np.abs(got - ref).max()
+        m = np.abs(ref).max()
+        print(f"1 Mb window fp32 card vs CPU plain ({what}): max|d| {d:.3e} "
+              f"max|ref| {m:.3e} (CPU {cpu_s:.1f} s)", flush=True)
+        check(d <= 1e-4 * max(1.0, m), f"1 Mb window {what}: max|d| {d}")
+    return launches
+
+
+SERVE_GENOME = (("chr8", 34_000_000), ("chr9", 34_000_000))
+GENOME_STEM = "Homo_sapiens.GRCh38.dna.primary_assembly"
+# command, coordinate, windows of the pipeline (each runs both models)
+SERVE_COMMANDS = (
+    ("region", "chr9:10,000,000-11,000,000", 1),
+    ("dup", "chr8:10,000,000-10,800,000", 3),
+    ("del", "chr8:20,000,000-21,000,000", 3),
+    ("inv", "chr9:15,000,000-16,000,000", 4),
+    ("break", "chr8:20,000,000|chr9:14,000,000|+-", 3),
+)
+
+
+def write_fasta(path, chroms, seed):
+    """A FASTA of random ACGT chromosomes with an N run and a lowercase run
+    each, in 60-letter lines."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"ACGTacgtN", dtype=np.uint8)
+    with open(path, "wb") as f:
+        for name, n in chroms:
+            codes = rng.integers(0, 4, n, dtype=np.uint8)
+            codes[1_000_000:1_100_000] = 8
+            codes[2_000_000:2_100_000] += 4
+            body = letters[codes]
+            rows = -(-n // 60)
+            text = np.full((rows, 61), ord("\n"), dtype=np.uint8)
+            letters_60 = np.zeros(rows * 60, dtype=np.uint8)
+            letters_60[:n] = body
+            text[:, :60] = letters_60.reshape(rows, 60)
+            # the last line holds the remaining letters
+            cut = (rows - 1) * 61 + (n - (rows - 1) * 60)
+            f.write(f">{name}\n".encode())
+            f.write(text.reshape(-1)[:cut].tobytes() + b"\n")
+
+
+def serve_phase(torch, cc, zoo):
+    """The warm server through the command line a user runs: `build-genome`
+    on a synthetic FASTA, two random folded 32 Mb bundles pickled, then
+    `serve --prewarm 32M` in bf16 in this process, reading the five
+    prediction modes, a malformed line and `quit`; each command's launch
+    counts set to 0 just before it and read just after. Returns the
+    launches summed over the commands."""
+    import contextlib
+    import io
+    import pickle
+    import tempfile
+
+    from orca_tpu_torch import cli, viz
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.predict import multiscale as ms, pipelines, resources
+    from orca_tpu_torch.utils.config import get_config
+
+    groups = fused_group_count(2, 32_000_000)
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+        model_dir = os.path.join(tmp, "models")
+        resource_dir = os.path.join(tmp, "resources")
+        out_dir = os.path.join(tmp, "out")
+        for d in (model_dir, resource_dir, out_dir):
+            os.makedirs(d)
+        fasta = os.path.join(tmp, "genome.fa")
+        t0 = time.perf_counter()
+        write_fasta(fasta, SERVE_GENOME, SEED + 5)
+        write_s = time.perf_counter() - t0
+        memmap = os.path.join(resource_dir, f"{GENOME_STEM}.codes.mmap")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            check(cli.main(["build-genome", fasta, memmap]) == 0,
+                  "build-genome failed")
+        build_s = time.perf_counter() - t0
+        os.remove(fasta)
+        print(f"build-genome: {sum(n for _, n in SERVE_GENOME) / 1e6:.0f} Mb "
+              f"FASTA written in {write_s:.3f} s, converted in {build_s:.3f} "
+              f"s ({said.getvalue().strip()!r})", flush=True)
+        for name, seed in (("h1esc", SEED), ("hff", SEED + 1)):
+            zoo.save_bundle(zoo.fold_bundle(zoo.random_32m_bundle(seed)),
+                            os.path.join(model_dir, f"orca_{name}.bundle"))
+
+        lines = [f"{mode} {coord} {os.path.join(out_dir, mode)} --no-target"
+                 for mode, coord, _ in SERVE_COMMANDS]
+        lines.insert(2, f"region chr9:10000000 {out_dir}/bad --no-target")
+        stdin = io.StringIO("\n".join(lines + ["quit", ""]))
+
+        # the card's machine has no matplotlib: the two drawing functions
+        # are replaced by a recorder of the files they would write
+        plots = []
+
+        def record_plot(output, file=None, **kw):
+            plots.append(os.path.relpath(file, out_dir))
+
+        loaded, commands = [], []
+        real_load, real_run = resources.load_resources, cli._run_prediction
+
+        def load(**kw):
+            loaded.append(real_load(**kw))
+            return loaded[-1]
+
+        def run(args, parser, res=None):
+            cc.fused_first_stage.launches = 0
+            cc.fused_conv_chain.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real_run(args, parser, res=res)  # the malformed line raises
+            torch.cuda.synchronize()
+            commands.append((args.command, time.perf_counter() - t0, {
+                "fused_first_stage": cc.fused_first_stage.launches,
+                "fused_conv_chain": cc.fused_conv_chain.launches}))
+            return out
+
+        class Stamped(io.StringIO):
+            """Stdout that keeps the time of each line's arrival."""
+
+            def __init__(self):
+                super().__init__()
+                self.stamps = []
+
+            def write(self, s):
+                self.stamps += [(time.perf_counter(), x)
+                                for x in s.splitlines() if x]
+                return super().write(s)
+
+        cfg = get_config()
+        saved = (cfg.param_dtype, viz.genomeplot, viz.genomeplot_256mb,
+                 resources.load_resources, cli._run_prediction, sys.stdin)
+        print("serve: viz.genomeplot and viz.genomeplot_256mb replaced by a "
+              "recorder of file names (no matplotlib on this machine)",
+              flush=True)
+        out = Stamped()
+        try:
+            cfg.param_dtype = "bfloat16"  # the serving precision
+            viz.genomeplot = viz.genomeplot_256mb = record_plot
+            resources.load_resources, cli._run_prediction = load, run
+            sys.stdin = stdin
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out), \
+                    Timed(torch, pipelines, "genomepredict") as t_pred, \
+                    Timed(torch, ms, "_device_sequence") as t_seq:
+                rc = cli.main(["serve", "--model-dir", model_dir,
+                               "--resource-dir", resource_dir,
+                               "--prewarm", "32M"])
+        finally:
+            (cfg.param_dtype, viz.genomeplot, viz.genomeplot_256mb,
+             resources.load_resources, cli._run_prediction,
+             sys.stdin) = saved
+        said = [x for _, x in out.stamps]
+        for x in said:
+            print(f"  serve| {x}", flush=True)
+        check(rc == 0, f"serve returned {rc}")
+        status = [x.split()[0] for x in said
+                  if x.split()[0] in ("WARM", "READY", "OK", "ERR")]
+        check(status == ["WARM", "READY", "OK", "OK", "ERR", "OK", "OK", "OK"],
+              f"serve status lines {status}")
+        ready_s = next(t for t, x in out.stamps if x == "READY") - t0
+        warm_s = float(next(x for x in said if x.startswith("WARM"))
+                       .split()[2].rstrip("s"))
+        check(len(loaded) == 1, f"{len(loaded)} resource loads")
+        res = loaded[0]
+        for name in ("h1esc", "hff"):
+            tensors, keys = tree_leaves(res.models[name], torch)
+            check(all(t.dtype == torch.bfloat16 and t.is_cuda
+                      for t in tensors) and "bn" not in keys,
+                  f"served {name}: not folded bf16 on the card")
+        check(plots, "no plot was asked for")
+        print(f"  plots recorded ({len(plots)}): {plots}", flush=True)
+
+        total = {"fused_first_stage": 0, "fused_conv_chain": 0}
+        check([c[0] for c in commands] == [m for m, _, _ in SERVE_COMMANDS],
+              f"commands run {[c[0] for c in commands]}")
+        for (mode, _, got), (_, _, windows) in zip(commands, SERVE_COMMANDS):
+            n = windows * 2 * groups
+            want = {"fused_first_stage": n, "fused_conv_chain": 6 * n}
+            check(got == want, f"serve {mode}: launches {got} != {want}")
+            for k in total:
+                total[k] += got[k]
+        outs = {}
+        for mode, _, windows in SERVE_COMMANDS:
+            with open(os.path.join(out_dir, mode, "orca_pred.pkl"), "rb") as f:
+                outs[mode] = pickle.load(f)
+            got = outs[mode] if mode != "region" else [outs[mode]]
+            check(len(got) == windows, f"{mode}.pkl: {len(got)} outputs")
+            check_maps(got, 6, f"serve {mode}")
+
+        # the region .pkl against a direct process_region on the same
+        # bundles (not counted)
+        direct = pipelines.process_region(
+            "chr9", 10_000_000, 11_000_000, res.genome,
+            res.bundles(["h1esc", "hff"]))
+        check(outs["region"]["start_coords"] == direct["start_coords"],
+              "served region: zoom starts differ from process_region")
+        d = max(np.abs(a - b).max()
+                for pa, pb in zip(outs["region"]["predictions"],
+                                  direct["predictions"])
+                for a, b in zip(pa, pb))
+        m = max(np.abs(b).max() for pb in direct["predictions"] for b in pb)
+        print(f"  served region .pkl vs a direct process_region: max|d| "
+              f"{d:.3e} max|ref| {m:.3e}", flush=True)
+        check(d <= 1e-4 * max(1.0, m), f"served region: max|d| {d}")
+    secs = {mode: round(s, 4) for mode, s, _ in commands}
+    print(f"serve: READY after {ready_s:.3f} s (WARM 32M {warm_s} s), "
+          f"commands {secs} seconds (first {commands[0][1]:.3f} s, the rest "
+          f"{statistics.mean(s for _, s, _ in commands[1:]):.3f} s on "
+          f"average; in all: genomepredict {t_pred.calls} calls "
+          f"{t_pred.seconds:.3f} s, of which _device_sequence {t_seq.calls} "
+          f"calls {t_seq.seconds:.3f} s), launches {total}, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, peak host RSS "
+          f"{peak_rss_gib():.2f} GiB", flush=True)
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -842,7 +1215,18 @@ def main() -> int:
     for k, v in screens_phase(torch, cc, zoo, genome).items():
         launches[torch.bfloat16][k] += v
 
-    # 7. the kernel line and the device line
+    # 7. the standalone 1 Mb family on windows of the same genome
+    for dtype, counts in onemb_phase(torch, cc, zoo, genome, peaks,
+                                     sms).items():
+        for k, v in counts.items():
+            launches[dtype][k] += v
+    del genome
+
+    # 8. the warm server, through the command line
+    for k, v in serve_phase(torch, cc, zoo).items():
+        launches[torch.bfloat16][k] += v
+
+    # 9. the kernel line and the device line
     rows = []
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, t in kernel_rows[dtype].items():

@@ -15,13 +15,19 @@ from typing import Optional
 import numpy as np
 import torch
 
-from orca_tpu_torch.models.zoo import Model256MBundle, ModelBundle, cast_bundle
+from orca_tpu_torch.models.zoo import (
+    Model1MBundle,
+    Model256MBundle,
+    ModelBundle,
+    cast_bundle,
+)
 from orca_tpu_torch.utils.config import get_config, resolve_device
 
 # the JAX package's bundle classes the pickle loader maps onto the port's
 _JAX_BUNDLES = {
     ("orca_tpu.models.zoo", "ModelBundle"): ModelBundle,
     ("orca_tpu.models.zoo", "Model256MBundle"): Model256MBundle,
+    ("orca_tpu.models.zoo", "Model1MBundle"): Model1MBundle,
 }
 
 
@@ -43,13 +49,22 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
 
 
 def bundle_from_numpy(host, device=None, dtype: Optional[torch.dtype] = None):
-    """A JAX-package ModelBundle or Model256MBundle (or one unpickled into
-    the port's class) with numpy leaves -> the port's bundle of the same
-    kind on `device`."""
+    """A JAX-package ModelBundle, Model256MBundle or Model1MBundle (or one
+    unpickled into the port's class) with numpy leaves -> the port's bundle
+    of the same kind on `device`."""
     device = resolve_device(device)
 
     def conv(tree):
         return None if tree is None else params_from_numpy(tree, device, dtype)
+
+    if hasattr(host, "net"):
+        return Model1MBundle(
+            name=host.name,
+            net=conv(host.net),
+            num_1d=host.num_1d,
+            normmats={int(lv): np.asarray(m) for lv, m in host.normmats.items()},
+            epss={int(lv): float(e) for lv, e in host.epss.items()},
+        )
 
     if hasattr(host, "pyramid1"):
         return Model256MBundle(
@@ -95,11 +110,10 @@ class _BundleUnpickler(pickle.Unpickler):
 
 
 def load_bundle(path: str, device=None, dtype: Optional[str] = None):
-    """Read a float32 bundle (32 Mb or 256 Mb) written by the JAX package's
-    `zoo.save_bundle` or the port's onto `device` (None = CUDA), cast to
-    `dtype` (default: the config's
-    param_dtype). Only load pickles this project wrote: unpickling runs
-    code."""
+    """Read a float32 bundle (32 Mb, 256 Mb or standalone 1 Mb) written by
+    the JAX package's `zoo.save_bundle` or the port's onto `device` (None =
+    CUDA), cast to `dtype` (default: the config's param_dtype). Only load
+    pickles this project wrote: unpickling runs code."""
     device = resolve_device(device)
     with open(path, "rb") as f:
         host = _BundleUnpickler(f).load()

@@ -1,7 +1,7 @@
-"""Model bundles (counterpart of orca_tpu/models/zoo.py): each multiscale
-model's encoder, pyramid and per-level decoder parameters plus its distance
-backgrounds (`normmats`/`epss` for the 1-32 Mb models,
-`background_cis`/`background_trans` for the 32-256 Mb models)."""
+"""Model bundles (counterpart of orca_tpu/models/zoo.py): each model's
+parameters plus its distance backgrounds (`normmats`/`epss` for the 1-32 Mb
+and the standalone 1 Mb models, `background_cis`/`background_trans` for the
+32-256 Mb models)."""
 
 from __future__ import annotations
 
@@ -40,6 +40,16 @@ def normmats_from_expectation(expected_log: np.ndarray, levels=LEVELS_32M,
     return normmats, epss
 
 
+def normmat_1m_from_expectation(expected_log: np.ndarray):
+    """The 1 Mb model's background: 1000 bins of 1 kb, averaged 4x to
+    250 x 250."""
+    e = expected_log[:1000]
+    normmat = np.exp(e[np.abs(np.arange(1000)[None, :]
+                              - np.arange(1000)[:, None])])
+    r = np.reshape(normmat, (250, 4, 250, 4)).mean(axis=1).mean(axis=2)
+    return {1: r}, {1: float(np.min(r))}
+
+
 @dataclasses.dataclass
 class ModelBundle:
     """A 1-32 Mb multiscale model. Parameter trees hold tensors; the
@@ -66,6 +76,19 @@ class ModelBundle:
             [np.log(self.normmats[lv])
              for lv in sorted(self.decoders, reverse=True)]
         ).astype(np.float32)
+
+
+@dataclasses.dataclass
+class Model1MBundle:
+    """A standalone 1 Mb model: the `decoders.init_net` tree (tower,
+    `Decoder_1m`, the 1D track head when num_1d is set). Parameters hold
+    tensors; the backgrounds stay numpy on the host."""
+
+    name: str
+    net: dict  # Net params: encoder/decoder/final_1d
+    num_1d: Optional[int]
+    normmats: Dict[int, np.ndarray]
+    epss: Dict[int, float]
 
 
 @dataclasses.dataclass
@@ -107,8 +130,8 @@ def _map_tensors(tree, fn):
 
 
 def _map_params(bundle, fn):
-    """The bundle (either class) with `fn` applied to every parameter
-    tensor; the numpy backgrounds are left as they are."""
+    """The bundle (any class) with `fn` applied to every parameter tensor;
+    the numpy backgrounds are left as they are."""
     return dataclasses.replace(bundle, **{
         f.name: _map_tensors(getattr(bundle, f.name), fn)
         for f in dataclasses.fields(bundle)
@@ -160,6 +183,26 @@ def random_256m_bundle(seed: int = 0, device=None, *,
     return _map_params(bundle, lambda t: t.to(device))
 
 
+def random_1m_bundle(seed: int = 0, num_1d: Optional[int] = 32, device=None,
+                     *, name: str = "random_1m") -> Model1MBundle:
+    """A standalone 1 Mb bundle with torch's default conv init from `seed`
+    (float32, BatchNorm unfolded), on `device` (None = CUDA), with the
+    smooth background of the JAX package's 1 Mb tests."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    d = np.arange(1000, dtype=np.float64)
+    normmats, epss = normmat_1m_from_expectation(-1.0 * np.log1p(d) - 2.0)
+    bundle = Model1MBundle(name=name, net=decoders.init_net(gen, num_1d),
+                           num_1d=num_1d, normmats=normmats, epss=epss)
+    return _map_params(bundle, lambda t: t.to(device))
+
+
+def fold_1m_bundle(bundle: Model1MBundle) -> Model1MBundle:
+    """Fold all BatchNorms into conv weights for inference (1 Mb family)."""
+    return dataclasses.replace(
+        bundle, net=fold_params(bundle.net, decoders.net_spec(bundle.num_1d)))
+
+
 def fold_256m_bundle(bundle: Model256MBundle) -> Model256MBundle:
     """Fold all BatchNorms into conv weights for inference (256 Mb family)."""
     return dataclasses.replace(
@@ -196,7 +239,7 @@ def fold_bundle(bundle: ModelBundle) -> ModelBundle:
 
 
 def cast_bundle(bundle, dtype: str):
-    """Cast a bundle's (either class) float32 parameters to `dtype`
+    """Cast a bundle's (any class) float32 parameters to `dtype`
     ('bfloat16' = serving precision; 'float32' returns the bundle
     unchanged)."""
     if dtype in ("float32", None):
@@ -209,7 +252,7 @@ def cast_bundle(bundle, dtype: str):
 
 
 def save_bundle(bundle, path: str) -> None:
-    """Pickle a bundle (either class) with its parameters as float32 numpy
+    """Pickle a bundle (any class) with its parameters as float32 numpy
     arrays, the form the JAX package's `zoo.save_bundle` writes; `load_bundle`
     reads both."""
     host = _map_params(bundle, lambda t: t.detach().float().cpu().numpy())
@@ -255,6 +298,8 @@ def load_leukemia_bundle(model_dir: str, resource_dir: str, name: str,
     _needs("A12", "the leukemia model family")
 
 
-def load_1m_bundle(model_dir: str, resource_dir: str, name: str):
-    """A standalone 1 Mb bundle: needs the 1 Mb family (ROADMAP A11)."""
-    _needs("A11", "the 1 Mb model family")
+def load_1m_bundle(model_dir: str, resource_dir: str,
+                   name: str) -> Model1MBundle:
+    """A standalone 1 Mb bundle from the reference's stage-a statedict: needs
+    the statedict converter (ROADMAP A13)."""
+    _needs("A13", "loading a 1 Mb bundle from torch statedicts")

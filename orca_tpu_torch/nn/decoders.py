@@ -3,7 +3,9 @@
   * `decoder_*`: the per-level pairwise decoder with distance encoding and
     optional coarse-prediction refinement;
   * `decoder1m_*`: the 19-block decoder of the 1 Mb model, added at level 1
-    of the 32 Mb cascade.
+    of the 32 Mb cascade;
+  * `apply_net`: the standalone 1 Mb model (tower, `Decoder_1m` and the
+    optional 1D track head).
 
 All 2D work is (N, H, W, C) on crop x crop maps; the convs run as cuDNN
 convolutions in the channels-last memory format.
@@ -15,6 +17,7 @@ from typing import Optional
 
 import torch
 
+from orca_tpu_torch.nn import encoders
 from orca_tpu_torch.nn.core import Block, Unit, apply_block, conv_pair_2d, init_block
 from orca_tpu_torch.ops import nn_ops
 
@@ -155,3 +158,57 @@ def apply_decoder1m(params: dict, x: torch.Tensor, *,
                     num_2d: int = 1) -> torch.Tensor:
     """(N, crop, 128) encoding -> (N, crop, crop, num_2d) map."""
     return apply_decoder1m_mat(params, pairwise(x), num_2d=num_2d)
+
+
+# --------------------------------------------------------------------------
+# Net: the standalone 1 Mb model
+# --------------------------------------------------------------------------
+
+
+def final1d_spec(num_1d: int) -> Block:
+    return Block(
+        units=(
+            Unit(1, 128, 128, k=1, bn=True, relu=True),
+            Unit(1, 128, num_1d, k=1, bn=False, sigmoid=True),
+        )
+    )
+
+
+def net_spec(num_1d: Optional[int] = None, num_2d: int = 1) -> dict:
+    """The spec tree of `init_net`'s parameters (for fold_params)."""
+    spec = {"encoder": encoders.encoder_tower_spec(),
+            "decoder": decoder1m_spec(num_2d)}
+    if num_1d:
+        spec["final_1d"] = final1d_spec(num_1d)
+    return spec
+
+
+def init_net(gen: torch.Generator, num_1d: Optional[int] = None,
+             num_2d: int = 1) -> dict:
+    params = {
+        "encoder": encoders.init_encoder_tower(gen),
+        "decoder": init_decoder1m(gen, num_2d),
+    }
+    if num_1d:
+        params["final_1d"] = init_block(gen, final1d_spec(num_1d))
+    return params
+
+
+def apply_net(params: dict, x: torch.Tensor, *, num_1d: Optional[int] = None,
+              num_2d: int = 1):
+    """1 Mb model forward, inference: (N, L, 4) one-hot (uint8 quarter-scale
+    or float) -> (N, L/4000, L/4000, num_2d) map, and the (N, L/4000, num_1d)
+    tracks when num_1d is set.
+
+    The tower runs as one piece (`encoders.apply_encoder_tower`): on a CUDA
+    tensor through the fused kernels on folded parameters, with the valid
+    range the whole window, which equals the JAX package's unfused stages
+    with zero padding at the window's edges; unfolded parameters raise
+    there."""
+    out7 = encoders.apply_encoder_tower(params["encoder"], x)
+    pred = apply_decoder1m_mat(params["decoder"], pairwise(out7),
+                               num_2d=num_2d)
+    if num_1d:
+        return pred, apply_block(params["final_1d"], final1d_spec(num_1d),
+                                 out7)
+    return pred

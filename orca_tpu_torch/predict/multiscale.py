@@ -16,6 +16,7 @@ at the end.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -169,6 +170,49 @@ def _cascade_32mb(bundle: ModelBundle, geom: CascadeGeometry, seq, mpos, wpos,
         )
         preds.append(_combine_orientations(pred))
     return torch.stack(preds), torch.stack([s[0] for s in starts])
+
+
+def _zero_window(geometry: CascadeGeometry, device) -> torch.Tensor:
+    return torch.zeros((1, geometry.window_bp, 4), dtype=torch.uint8,
+                       device=device)
+
+
+def warmup_cascade_32m(bundle: ModelBundle,
+                       geometry: CascadeGeometry = GEOM_32M,
+                       device=None) -> float:
+    """Counterpart of the JAX package's program warm-up: torch compiles
+    nothing, so this runs one request on an all-zero packed window at
+    `geometry` (production by default), which pays a process's first-request
+    set-up (cuDNN plans, allocator pools) before a client's first request.
+    The bundle's parameters live on `device` (None = CUDA). Returns the
+    seconds taken."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        preds, _ = _cascade_32mb(bundle, geometry,
+                                 _zero_window(geometry, device),
+                                 geometry.window_bp // 2,
+                                 geometry.window_bp // 2,
+                                 bundle.log_normmats())
+        preds.cpu()
+    return time.perf_counter() - t0
+
+
+def warmup_cascade_256m(bundle: Model256MBundle,
+                        geometry: CascadeGeometry = GEOM_256M,
+                        device=None) -> float:
+    """The 256 Mb counterpart of `warmup_cascade_32m`: one request on an
+    all-zero window with a flat background. Returns the seconds taken."""
+    device = resolve_device(device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        preds, _, _ = _cascade_256mb(
+            bundle, geometry, _zero_window(geometry, device),
+            geometry.window_bp // 2, geometry.window_bp // 2,
+            geometry.window_bp,
+            np.ones((geometry.bins, geometry.bins), np.float32))
+        preds.cpu()
+    return time.perf_counter() - t0
 
 
 def _downsample_target(target: np.ndarray, start: int, factor: int,

@@ -57,6 +57,8 @@ def _fold(bundle):
     """Fold BatchNorm into the conv weights; a no-op on folded parameters."""
     if isinstance(bundle, zoo.Model256MBundle):
         return zoo.fold_256m_bundle(bundle)
+    if isinstance(bundle, zoo.Model1MBundle):
+        return zoo.fold_1m_bundle(bundle)
     return zoo.fold_bundle(bundle)
 
 
@@ -73,10 +75,12 @@ def load_resources(models=("32M",), model_dir: Optional[str] = None,
     only), then cast to dtype (default: config param_dtype /
     ORCA_TPU_PARAM_DTYPE): 'bfloat16' is the serving precision, 'float32'
     reference parity. Folding comes before the cast, as in the JAX package,
-    where bundles are folded in float32 when they are converted. A model dir
-    without the pickle takes the statedict loaders, which raise until the
-    converter is ported (ROADMAP A13); the 1 Mb and leukemia families raise
-    likewise (A11, A12)."""
+    where the 32 Mb and 256 Mb bundles are folded in float32 when they are
+    converted. The 1 Mb family is folded too, though the JAX package loads
+    and runs it unfolded: both give the same maps to float32 rounding. A
+    model dir without the pickle takes the statedict loaders, which raise
+    until the converter is ported (ROADMAP A13); the leukemia family raises
+    likewise (A12)."""
     device = resolve_device(device)
     cfg = get_config()
     model_dir = model_dir or cfg.model_dir
@@ -105,9 +109,9 @@ def load_resources(models=("32M",), model_dir: Optional[str] = None,
             )
     if "1m" in wanted:
         for name in ("h1esc", "hff"):
-            # no pickle path: the port has no Model1MBundle yet
-            out_models[f"{name}_1m"] = zoo.load_1m_bundle(
-                model_dir, resource_dir, name
+            out_models[f"{name}_1m"] = load(
+                f"{name}_1m", zoo.load_1m_bundle, model_dir, resource_dir,
+                name,
             )
     if "256m" in wanted:
         for name in ("h1esc", "hff"):

@@ -7,10 +7,12 @@ On the CPU the port's functions take their plain versions, which must match
 (summation order differs) and, in bf16, to within twice the Pallas kernel's
 own bf16-vs-fp32 difference on the same inputs.
 
-The CUDA tests (the kernels, and the encoder tower's dispatch to them) run
-where there is a card and no JAX:
+The CUDA tests (the kernels, and the dispatch to them of the encoder tower
+and of the 1 Mb model) run where there is a card and no JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_conv_chain.py
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -189,6 +191,15 @@ GPU_CASES = [
     # rows shorter than one tile: most threads of a level have no position
     ("chain", 64, 64, 4, 12, ([0, 2], [12, 9]), 1),
     ("first", 4, 64, 2, 10, ([0, 1], [10, 8]), "u8"),
+    # the standalone 1 Mb model: one piece of a 1 Mb window per row, valid
+    # everywhere (zero padding at the window's edges), stages 0-6
+    ("first", 4, 64, 4, 1_000_000, ([0, 0], [1_000_000] * 2), "u8"),
+    ("chain", 64, 96, 4, 250_000, ([0, 0], [250_000] * 2), 1),
+    ("chain", 96, 128, 5, 62_500, ([0, 0], [62_500] * 2), 1),
+    ("chain", 128, 128, 5, 12_500, ([0, 0], [12_500] * 2), 1),
+    ("chain", 128, 128, 5, 2_500, ([0, 0], [2_500] * 2), 1),
+    ("chain", 128, 128, 2, 500, ([0, 0], [500] * 2), 1),
+    ("chain", 128, 128, 1, 250, ([0, 0], [250] * 2), -1),
 ]
 
 
@@ -209,12 +220,14 @@ PLAN_SHAPES += [(2, length, pool, cin, c, kind == "first")
 @pytest.mark.parametrize("rows,length,pool,cin,c,first", PLAN_SHAPES)
 def test_tile_plan(dtype, rows, length, pool, cin, c, first):
     """Tiles are multiples of the pool and of 8 and at least 16, and their
-    shared memory fits a block; a length with enough work fills 132 SMs."""
+    shared memory fits a block; a length with enough work for the smallest
+    such tile fills 132 SMs."""
     dtype = getattr(torch, dtype)
     tile = cc.plan_tile(rows, length, pool, cin, c, dtype, first, sms=132)
     assert tile % pool == 0 and tile % 8 == 0 and tile >= 16
     assert cc.smem_bytes(cin, c, tile, dtype, first) <= 227 * 1024
-    if rows * -(-length // 16) >= 132:
+    base = math.lcm(8, pool)
+    if rows * -(-length // (base * -(-16 // base))) >= 132:
         assert rows * -(-length // tile) >= 132
     if dtype == torch.bfloat16:  # conv 0's tile + 24 rows fit the m64 tiles
         assert -(-(tile + 24) // 64) * 64 <= (512 if c == 64 else 256)
@@ -337,3 +350,36 @@ def test_cuda_tower_runs_kernels_or_refuses():
     want = encoders.apply_encoder_tower(folded, x)
     d = (got.cpu() - want).abs().max().item()
     assert d <= 1e-4 * max(1.0, want.abs().max().item()), d
+
+
+@pytest.mark.gpu
+def test_cuda_1m_net_runs_kernels_or_refuses():
+    """The standalone 1 Mb model on the card: an unfolded net is refused
+    before any launch; a folded one launches each fused kernel once a call
+    (the window is one piece whatever the batch) and matches the CPU plain
+    path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from orca_tpu_torch.models import zoo
+    from orca_tpu_torch.predict import onemb
+
+    raw = zoo.random_1m_bundle(0, num_1d=8, device="cpu")
+    folded = zoo.fold_1m_bundle(raw)
+    rng = np.random.RandomState(11)
+    seq = np.eye(4, dtype=np.uint8)[rng.randint(0, 4, (3, 40_000))] * 4
+
+    def counts():
+        return cc.fused_first_stage.launches, cc.fused_conv_chain.launches
+
+    before = counts()
+    with pytest.raises(ValueError, match="folded"):
+        onemb.predict_1m(zoo._map_params(raw, lambda t: t.cuda()), seq)
+    assert counts() == before
+    got = onemb.predict_1m(zoo._map_params(folded, lambda t: t.cuda()), seq,
+                           with_1d=True, rc_average=True)
+    assert counts() == (before[0] + 1, before[1] + 6)
+    want = onemb.predict_1m(folded, seq, with_1d=True, rc_average=True,
+                            device="cpu")
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert np.abs(g - w).max() <= 1e-4 * max(1.0, np.abs(w).max())

@@ -40,6 +40,34 @@ def test_no_jax_or_orca_tpu_import_in_source(path):
     assert not (_imported_roots(path) & FORBIDDEN)
 
 
+def test_command_line_and_1m_family_are_checked_sources():
+    """The command line, the 1 Mb family and the expectation files module are
+    among the sources held to the rule above."""
+    sources = set(_port_sources())
+    for rel in ("cli.py", "predict/onemb.py", "data/expectation.py"):
+        assert PORT / rel in sources, rel
+
+
+def test_cli_help_runs_with_jax_blocked():
+    """`python -m orca_tpu_torch.cli --help` works where jax and orca_tpu
+    cannot be imported."""
+    code = (
+        "import runpy, sys\n"
+        "for name in %r:\n"
+        "    sys.modules[name] = None\n"
+        "sys.argv = ['orca-tpu-torch', '--help']\n"
+        "runpy.run_module('orca_tpu_torch.cli', run_name='__main__')\n"
+        % (sorted(FORBIDDEN),)
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.startswith("usage: orca-tpu-torch")
+    for sub in ("region", "break", "build-genome", "expectation", "serve"):
+        assert sub in proc.stdout
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -75,6 +103,27 @@ def test_entry_points_need_cuda_unless_told_cpu():
         multiscale.genomepredict_256mb(None, "chr1", [], 0, models=())
     with pytest.raises(RuntimeError, match="CUDA"):
         zoo.load_bundle("unused.bundle")
+
+
+def test_1m_family_and_warmups_need_cuda_unless_told_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    from orca_tpu_torch.models import zoo
+    from orca_tpu_torch.predict import multiscale, onemb
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.random_1m_bundle(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        onemb.predict_1m(None, None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        onemb.screen_windows(None, [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multiscale.warmup_cascade_32m(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        multiscale.warmup_cascade_256m(None)
+    bundle = zoo.random_1m_bundle(0, num_1d=None, device="cpu")
+    assert isinstance(bundle, zoo.Model1MBundle)
+    assert bundle.net["encoder"]["lconv"][0][0]["w"].device.type == "cpu"
 
 
 class _ReachedTheCascade(Exception):

@@ -296,7 +296,7 @@ def test_missing_models_raise(tmp_path):
         with pytest.raises(FileNotFoundError, match="leukemia"):
             mod.load_resources(models=["leukemia"], model_dir=empty,
                                resource_dir=empty, **kw)
-    for models, item in ((["32M"], "A13"), (["256M"], "A13"), (["1M"], "A11")):
+    for models, item in ((["32M"], "A13"), (["256M"], "A13"), (["1M"], "A13")):
         with pytest.raises(NotImplementedError, match=item):
             tres.load_resources(models=models, model_dir=empty,
                                 resource_dir=empty, device="cpu")
