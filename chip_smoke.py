@@ -66,8 +66,28 @@ Phases (any failure exits non-zero before the final line):
      matplotlib). Checked: WARM, READY, 5 OK and 1 ERR; each .pkl's maps;
      the region .pkl against a direct `process_region`; each command's
      launches against its windows x 2 models x 8 groups;
-  9. one JSON line with every kernel (its launches summed over every request
-     of phases 4-8), then the device line.
+  9. the released checkpoints' path ("checkpoints"): seeded random port
+     bundles of every family (h1esc, hff, hctnoc; h1esc_1m, hff_1m sharing
+     the 32 Mb models' stage-a Net; h1esc_256m, hff_256m sharing their tower
+     and pyramid; leukemiaA, leukemiaB), BatchNorm statistics randomized,
+     written as reference-format statedicts (DataParallel 'module.' prefix,
+     `num_batches_tracked`, net0 the whole stage-a Net with its 1D head) into
+     a temporary `_smoke_*` dir, with smooth expectation .npy files under
+     every name the loaders read; then `load_resources(models=["32M", "1M",
+     "256M", "leukemia"])` onto the card in float32 and in bf16 (each
+     timed, with the peak host RSS of the load, sampled): every folded
+     parameter equal to folding the source bundle on the card (max|d| 0 in
+     float32, and in bf16 after the same cast), every background equal; then
+     full-geometry 32 Mb requests (zoom 16 Mb) for h1esc, HCTnoc, leukemiaA
+     and leukemiaB in bf16 and leukemiaB in fp32, in turns, six rounds,
+     launches checked (8/48 a request), maps (250, 250) or (num_2d, 250,
+     250), finite and symmetric, the medians of the last five rounds split
+     into encoder + pyramid, decoder levels and the rest on the host;
+     leukemiaB's fp32 cascade on the card against the CPU plain path on a
+     1.024 Mb window; `cli.main(["convert", "leukemia", "leukemiaB", ...])`
+     in this process, its pickle equal to the bundle load_resources loaded;
+ 10. one JSON line with every kernel (its launches summed over every request
+     of phases 4-9), then the device line.
 """
 
 from __future__ import annotations
@@ -928,6 +948,375 @@ def serve_phase(torch, cc, zoo):
     return total
 
 
+CHECKPOINT_MODELS = ("h1esc", "hff", "hctnoc", "h1esc_1m", "hff_1m",
+                     "h1esc_256m", "hff_256m", "leukemiaA", "leukemiaB")
+CHECKPOINT_ROUNDS = 5  # timed requests of each family after the first
+
+
+def random_bn(torch, tree, gen):
+    """A parameter tree with every BatchNorm's statistics drawn from `gen`
+    (so folding is not the identity)."""
+    if isinstance(tree, dict):
+        out = {k: random_bn(torch, v, gen) for k, v in tree.items()}
+        if "bn" in tree:
+            c, dev = tree["b"].numel(), tree["b"].device
+
+            def u(lo, hi):
+                return (torch.rand(c, generator=gen) * (hi - lo) + lo).to(dev)
+
+            out["bn"] = {"scale": u(0.8, 1.2), "bias": u(-0.1, 0.1),
+                         "mean": u(-0.1, 0.1), "var": u(0.8, 1.2)}
+        return out
+    if isinstance(tree, list):
+        return [random_bn(torch, v, gen) for v in tree]
+    return tree
+
+
+def checkpoint_sources(torch, zoo):
+    """Seeded random port bundles (unfolded, float32, on the card) of every
+    family, laid out as the released models are: each 1 Mb model is its
+    32 Mb model's stage-a Net (tower and `Decoder_1m`) with a 1D head, each
+    256 Mb model takes its 32 Mb model's tower and pyramid."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+
+    def bn(bundle):
+        return dataclasses.replace(bundle, **{
+            f.name: random_bn(torch, getattr(bundle, f.name), gen)
+            for f in dataclasses.fields(bundle)
+            if isinstance(getattr(bundle, f.name), dict)})
+
+    src = {}
+    for k, (name, num_1d) in enumerate((("h1esc", 32), ("hff", 22))):
+        b32 = bn(zoo.random_32m_bundle(SEED + k, name=name))
+        head = bn(zoo.random_1m_bundle(SEED + k, num_1d=num_1d,
+                                       name=f"{name}_1m"))
+        src[name] = b32
+        src[f"{name}_1m"] = dataclasses.replace(head, net=dict(
+            head.net, encoder=b32.encoder, decoder=b32.decoder_1pt))
+        src[f"{name}_256m"] = dataclasses.replace(
+            bn(zoo.random_256m_bundle(SEED + k, name=f"{name}_256m")),
+            encoder=b32.encoder, pyramid1=b32.pyramid)
+    src["hctnoc"] = bn(zoo.random_32m_bundle(
+        SEED + 2, name="hctnoc", upsample_mode="nearest", up_pass=False))
+    src["leukemiaA"] = bn(zoo.random_leukemia_bundle(SEED + 3, 2,
+                                                     name="leukemiaA"))
+    src["leukemiaB"] = bn(zoo.random_leukemia_bundle(SEED + 4, 6,
+                                                     name="leukemiaB"))
+    return src
+
+
+def write_checkpoints(torch, zoo, src, model_dir, resource_dir):
+    """The sources as reference-format statedicts, and expectation files
+    from which the loaders rebuild the sources' backgrounds exactly."""
+    from orca_tpu_torch.models import convert
+
+    def save(sd, stem):
+        torch.save({f"module.{k}": v for k, v in sd.items()},
+                   os.path.join(model_dir, f"orca_{stem}.statedict"))
+
+    for name in ("h1esc", "hff", "hctnoc", "leukemiaA", "leukemiaB"):
+        b = src[name]
+        save(convert.pyramid_statedict(b.pyramid, 5, b.pyramid_up_pass),
+             f"{name}.net")
+        # net0 is the whole stage-a Net: HCTnoc's `Decoder_1m` and the 1D
+        # heads of the models without a 1 Mb family are written, not read
+        head = src.get(f"{name}_1m", src["h1esc_1m"])
+        net = dict(head.net, encoder=b.encoder)
+        if b.decoder_1pt is not None:
+            net["decoder"] = b.decoder_1pt
+        save(convert.net_statedict(net, head.num_1d, b.num_2d),
+             f"{name}.net0")
+        for lv, p in b.decoders.items():
+            save(convert.decoder_statedict(p, b.num_2d), f"{name}.d{lv}")
+    for name in ("h1esc_256m", "hff_256m"):
+        b = src[name]
+        save(convert.pyramid_statedict(b.pyramid, 3, True), f"{name}.net")
+        for lv, p in b.decoders.items():
+            save(convert.decoder_statedict(p), f"{name}.d{lv}")
+
+    # the random bundles' expectations (models/zoo.py)
+    d = np.arange(8000, dtype=np.float64)
+    files = {f: -1.5 * np.log1p(d) - 2.0 for f in zoo._EXPECTED_FILES.values()}
+    for name in ("leukemiaA", "leukemiaB"):
+        for i, f in enumerate(zoo._LEUKEMIA_NORMMAT_FILES[name]):
+            files[f] = -1.5 * np.log1p(d) - 2.0 - 0.1 * i
+    for stem in zoo._STEMS.values():
+        prefix = f"{stem}.rebinned.mcool.expected"
+        files[f"{prefix}.res1000.npy"] = -1.0 * np.log1p(d[:1000]) - 2.0
+        files[f"{prefix}.res32000.mono.npy"] = -1.2 * np.log1p(d) - 3.0
+        files[f"{prefix}.res32000.trans.npy"] = np.array(-9.0)
+    for f, v in files.items():
+        np.save(os.path.join(resource_dir, f), v)
+
+
+PARAM_FIELDS = ("encoder", "pyramid1", "pyramid", "decoders", "decoder_1pt",
+                "net")
+
+
+def max_param_diff(torch, got, want):
+    """max|d| over two bundles' parameter tensors, walked in parallel; a
+    structure, shape, dtype or device mismatch fails the phase."""
+    worst = 0.0
+
+    def walk(g, w, where):
+        nonlocal worst
+        if isinstance(w, dict):
+            check(isinstance(g, dict) and sorted(g, key=str)
+                  == sorted(w, key=str), f"{where}: keys differ")
+            for k in w:
+                walk(g[k], w[k], f"{where}.{k}")
+        elif isinstance(w, (list, tuple)):
+            check(isinstance(g, (list, tuple)) and len(g) == len(w),
+                  f"{where}: lengths differ")
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{where}[{i}]")
+        elif isinstance(w, torch.Tensor):
+            check(isinstance(g, torch.Tensor) and g.shape == w.shape
+                  and g.dtype == w.dtype and g.device == w.device,
+                  f"{where}: tensor {getattr(g, 'shape', g)} vs {w.shape}")
+            worst = max(worst, (g.float() - w.float()).abs().max().item())
+        else:
+            check((g is None) == (w is None), f"{where}: {g!r} vs {w!r}")
+
+    for field in PARAM_FIELDS:
+        if hasattr(want, field):
+            walk(getattr(got, field), getattr(want, field), field)
+    return worst
+
+
+def backgrounds_equal(got, want):
+    if hasattr(want, "normmats"):
+        return (sorted(got.normmats) == sorted(want.normmats)
+                and all(np.array_equal(got.normmats[lv], want.normmats[lv])
+                        for lv in want.normmats)
+                and got.epss == want.epss)
+    return (np.array_equal(got.background_cis, want.background_cis,
+                           equal_nan=True)
+            and got.background_trans == want.background_trans)
+
+
+class PeakRss:
+    """The highest resident set size this process reaches while installed,
+    sampled from /proc/self/statm every 10 ms (the kernel's own peak mark
+    covers the whole process and cannot be reset on every machine)."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = 0, threading.Event()
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._sample()
+        self.start = self.peak
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        with open("/proc/self/statm") as f:
+            self.peak = max(self.peak, int(f.read().split()[1]) * self._page)
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            self._sample()
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self._sample()
+
+    def __str__(self):
+        return (f"{self.peak / 2**30:.2f} GiB ({self.start / 2**30:.2f} GiB "
+                f"at the start; sampled every 10 ms)")
+
+
+def checkpoints_phase(torch, cc, zoo, seq):
+    """The released-checkpoint path: reference-format statedicts of every
+    family written from seeded random bundles, loaded by `load_resources`
+    onto the card, checked against the sources, driven through
+    `genomepredict` at full geometry (the launch counters set to 0 just
+    before each request and read just after), leukemiaB held to the CPU on
+    a small window, and the command line's `convert`. Returns {dtype:
+    launches}."""
+    import contextlib
+    import io
+    import tempfile
+
+    from orca_tpu_torch import cli
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.predict import multiscale as ms, resources
+
+    geom = ms.GEOM_32M
+    groups = fused_group_count(2, geom.window_bp)
+    launches = {torch.bfloat16: {"fused_first_stage": 0, "fused_conv_chain": 0},
+                torch.float32: {"fused_first_stage": 0, "fused_conv_chain": 0}}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+        model_dir = os.path.join(tmp, "models")
+        resource_dir = os.path.join(tmp, "resources")
+        os.makedirs(model_dir)
+        os.makedirs(resource_dir)
+        t0 = time.perf_counter()
+        src = checkpoint_sources(torch, zoo)
+        write_checkpoints(torch, zoo, src, model_dir, resource_dir)
+        nbytes = sum(os.path.getsize(os.path.join(model_dir, f))
+                     for f in os.listdir(model_dir))
+        print(f"checkpoints: {len(os.listdir(model_dir))} statedicts "
+              f"({nbytes / 1e6:.1f} MB) and {len(os.listdir(resource_dir))} "
+              f"expectation files written in {time.perf_counter() - t0:.3f} "
+              f"s", flush=True)
+
+        loaded = {}
+        for dtype in ("float32", "bfloat16"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with PeakRss() as rss:
+                res = resources.load_resources(
+                    models=["32M", "1M", "256M", "leukemia"],
+                    model_dir=model_dir, resource_dir=resource_dir,
+                    dtype=dtype, device="cuda")
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(list(res.models) == list(CHECKPOINT_MODELS),
+                  f"load_resources: {list(res.models)}")
+            print(f"checkpoints load_resources {dtype}: {len(res.models)} "
+                  f"models from statedicts in {secs:.3f} s, peak host RSS "
+                  f"during the load {rss}", flush=True)
+            loaded[dtype] = res.models
+        worst = {}
+        for name in CHECKPOINT_MODELS:
+            want = resources._fold(src[name])
+            for dtype in ("float32", "bfloat16"):
+                got = loaded[dtype][name]
+                check(type(got) is type(want) and got.name == want.name,
+                      f"{name}: {type(got).__name__} {got.name}")
+                d = max_param_diff(torch, got, zoo.cast_bundle(want, dtype))
+                worst[(name, dtype)] = d
+                check(d == 0.0, f"{name} {dtype}: loaded parameters differ "
+                      f"from the folded source by {d}")
+                check(backgrounds_equal(got, want),
+                      f"{name} {dtype}: backgrounds differ")
+                _, keys = tree_leaves(got, torch)
+                check("bn" not in keys, f"{name}: BatchNorm left")
+        print(f"checkpoints round trip: {len(worst)} bundles, every folded "
+              f"parameter equal to folding its source on the card (max|d| "
+              f"{max(worst.values())} in float32 and bf16), backgrounds "
+              f"equal", flush=True)
+        del src
+
+        # full-geometry requests, the families in turns: a first round, then
+        # CHECKPOINT_ROUNDS more whose medians give the split
+        mpos = wpos = geom.window_bp // 2
+        want_starts = [int(wpos - geom.window_bp // 2 + s * geom.bin_bp)
+                       for s in host_starts(geom, mpos, wpos)]
+        want = {"fused_first_stage": groups, "fused_conv_chain": 6 * groups}
+        configs = (("h1esc", "bfloat16"), ("hctnoc", "bfloat16"),
+                   ("leukemiaA", "bfloat16"), ("leukemiaB", "bfloat16"),
+                   ("leukemiaB", "float32"))
+        times = {c: [] for c in configs}  # (request, encoder, decoders) s
+        for _ in range(1 + CHECKPOINT_ROUNDS):
+            for name, dtype in configs:
+                bundle = loaded[dtype][name]
+                cc.fused_first_stage.launches = 0
+                cc.fused_conv_chain.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with Timed(torch, ms, "_encode_32mb") as t_enc, \
+                        Timed(torch, ms, "_decode_level") as t_dec:
+                    out = ms.genomepredict(seq, "chrSynthetic", mpos, wpos,
+                                           [bundle])
+                torch.cuda.synchronize()
+                times[(name, dtype)].append(
+                    (time.perf_counter() - t0, t_enc.seconds, t_dec.seconds))
+                counts = {"fused_first_stage": cc.fused_first_stage.launches,
+                          "fused_conv_chain": cc.fused_conv_chain.launches}
+                check(counts == want, f"{name} {dtype}: launches {counts} != "
+                      f"{want}")
+                for k, v in counts.items():
+                    launches[getattr(torch, dtype)][k] += v
+                check(out["start_coords"] == want_starts,
+                      f"{name}: starts {out['start_coords']} != "
+                      f"{want_starts}")
+                shape = ((geom.crop,) * 2 if bundle.num_2d == 1
+                         else (bundle.num_2d, geom.crop, geom.crop))
+                for j, p in enumerate(out["predictions"][0]):
+                    check(p.shape == shape, f"{name} level {j}: {p.shape}")
+                    check(np.isfinite(p).all(),
+                          f"{name} level {j}: non-finite")
+                    check(np.array_equal(p, np.swapaxes(p, -1, -2)),
+                          f"{name} level {j}: not symmetric")
+        dec = {}
+        for (name, dtype), rows in times.items():
+            # each part's median over the timed rounds; the rest is the
+            # request less its encoder and decoder levels, round by round
+            req, enc, dec[(name, dtype)], rest = (
+                statistics.median(col) for col in
+                zip(*[(r, e, d, r - e - d) for r, e, d in rows[1:]]))
+            print(f"checkpoints request {name} {dtype}: {len(rows)} "
+                  f"requests, {want} launches each, maps "
+                  f"{loaded[dtype][name].num_2d} x {geom.crop}^2; first "
+                  f"{rows[0][0]:.4f} s, then medians: request {req:.4f} s, "
+                  f"encoder+pyramid {enc:.4f} s, decoder levels "
+                  f"{dec[(name, dtype)]:.4f} s (range "
+                  f"{min(r[2] for r in rows[1:]):.4f}-"
+                  f"{max(r[2] for r in rows[1:]):.4f}), host and the rest "
+                  f"{rest:.4f} s", flush=True)
+        ratio = dec[("leukemiaB", "bfloat16")] / dec[("h1esc", "bfloat16")]
+        print(f"checkpoints decoders bf16, medians of {CHECKPOINT_ROUNDS} "
+              f"requests in turns: leukemiaB (134/70 channels into the "
+              f"combiners) / h1esc (129/65) = {ratio:.3f}", flush=True)
+
+        # leukemiaB's fp32 cascade on the card against the CPU plain path,
+        # with its parameters and backgrounds rebuilt at a 1.024 Mb window
+        small = ms.CascadeGeometry(1_024_000, 4000, 8)
+        logs = [np.load(os.path.join(resource_dir, f))
+                for f in zoo._LEUKEMIA_NORMMAT_FILES["leukemiaB"]]
+        nm, eps = zoo.multi_normmats_from_expectations(
+            logs, nbins=small.bins, crop=small.crop)
+        gpu_b = dataclasses.replace(loaded["float32"]["leukemiaB"],
+                                    normmats=nm, epss=eps)
+        cpu_b = zoo._map_params(gpu_b, lambda t: t.cpu())
+        sseq = seq[:, : small.window_bp]
+        a = ms.genomepredict(sseq, "c", 400_000, 512_000, [gpu_b],
+                             geometry=small)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(len(os.sched_getaffinity(0)))
+        t0 = time.perf_counter()
+        b = ms.genomepredict(sseq, "c", 400_000, 512_000, [cpu_b],
+                             geometry=small, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        torch.set_num_threads(threads)
+        check(a["start_coords"] == b["start_coords"],
+              "leukemiaB small window: starts differ")
+        d = max(np.abs(p - q).max() for p, q in zip(a["predictions"][0],
+                                                    b["predictions"][0]))
+        m = max(np.abs(q).max() for q in b["predictions"][0])
+        print(f"checkpoints leukemiaB fp32 card vs CPU plain (1.024 Mb "
+              f"window, 6 heads): max|d| {d:.3e} max|ref| {m:.3e} (CPU "
+              f"{cpu_s:.1f} s)", flush=True)
+        check(d <= 1e-4 * max(1.0, m), f"leukemiaB small window: max|d| {d}")
+        del gpu_b, cpu_b
+
+        # the command line's convert, in this process
+        out_path = os.path.join(tmp, "orca_leukemiaB.bundle")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            rc = cli.main(["convert", "leukemia", "leukemiaB", out_path,
+                           "--model-dir", model_dir,
+                           "--resource-dir", resource_dir])
+        convert_s = time.perf_counter() - t0
+        check(rc == 0 and said.getvalue() == f"wrote {out_path}\n",
+              f"convert: rc {rc}, said {said.getvalue()!r}")
+        conv = zoo.load_bundle(out_path, device="cuda", dtype="float32")
+        d = max_param_diff(torch, conv, loaded["float32"]["leukemiaB"])
+        check(d == 0.0 and backgrounds_equal(conv,
+                                             loaded["float32"]["leukemiaB"]),
+              f"converted leukemiaB differs from the loaded one: max|d| {d}")
+        print(f"checkpoints convert leukemia leukemiaB: {convert_s:.3f} s on "
+              f"the host ({os.path.getsize(out_path) / 1e6:.1f} MB pickle), "
+              f"load_bundle equal to the load_resources bundle (max|d| {d}, "
+              f"backgrounds equal)", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1226,7 +1615,12 @@ def main() -> int:
     for k, v in serve_phase(torch, cc, zoo).items():
         launches[torch.bfloat16][k] += v
 
-    # 9. the kernel line and the device line
+    # 9. the released checkpoints' path, through the same entry points
+    for dtype, counts in checkpoints_phase(torch, cc, zoo, seq).items():
+        for k, v in counts.items():
+            launches[dtype][k] += v
+
+    # 10. the kernel line and the device line
     rows = []
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, t in kernel_rows[dtype].items():

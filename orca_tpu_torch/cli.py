@@ -8,9 +8,9 @@ plus framework utilities:
                 expectation files (the mcool path needs no cooltools)
   serve         warm prediction server: one process keeps its models on
                 the card and answers commands read from stdin
-The JAX package's `convert`, `certify`, `train` and `bench` keep their
-arguments here but are not ported yet: each exits with the ROADMAP item that
-will port it.
+  convert       the reference's torch statedicts -> a bundle pickle
+The JAX package's `certify`, `train` and `bench` keep their arguments here
+but are not ported yet: each exits with the ROADMAP item that will port it.
 
 Predictions run on the CUDA card; `--cpu` runs them on the host CPU instead.
 A machine without CUDA refuses a prediction without `--cpu`.
@@ -34,8 +34,7 @@ PREDICTION_MODES = ("region", "del", "dup", "inv", "break")
 # subcommands whose arguments are parsed but whose work waits for a ROADMAP
 # item of the port
 _NOT_PORTED = {
-    "convert": ("A13", "the statedict converter"),
-    "certify": ("A13", "certification against the reference"),
+    "certify": ("A17", "certification against the reference's modules"),
     "train": ("A15", "training"),
     "bench": ("A14", "the port's benchmark"),
 }
@@ -101,8 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("fasta")
     p.add_argument("memmap")
 
-    p = sub.add_parser("convert", help="torch statedicts -> bundle pickle "
-                       "(not ported yet: ROADMAP A13)")
+    p = sub.add_parser("convert", help="torch statedicts -> bundle pickle")
     p.add_argument("family", choices=["32m", "1m", "256m", "leukemia"])
     p.add_argument("name", help="h1esc | hff | hctnoc | leukemiaA | leukemiaB")
     p.add_argument("out")
@@ -162,7 +160,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser(
         "certify",
         help="checkpoint parity report vs the reference implementation "
-        "(not ported yet: ROADMAP A13)",
+        "(not ported yet: ROADMAP A17)",
     )
     p.add_argument("reference", help="path to a jzhoulab/orca checkout")
     p.add_argument("--model-dir", default=None)
@@ -192,6 +190,27 @@ def _check_seq_shards(args, parser):
                      " which is not ported yet (ROADMAP A16)")
 
 
+def _convert(args) -> int:
+    """A family's statedict loader on the host CPU (conversion is an offline
+    step and the pickle holds numpy), then `zoo.save_bundle`."""
+    from orca_tpu_torch.models import zoo
+    from orca_tpu_torch.utils.config import get_config
+
+    cfg = get_config()
+    model_dir = args.model_dir or cfg.model_dir
+    resource_dir = args.resource_dir or cfg.resource_dir
+    loader = {
+        "32m": zoo.load_32m_bundle,
+        "1m": zoo.load_1m_bundle,
+        "256m": zoo.load_256m_bundle,
+        "leukemia": zoo.load_leukemia_bundle,
+    }[args.family]
+    bundle = loader(model_dir, resource_dir, args.name, device="cpu")
+    zoo.save_bundle(bundle, args.out)
+    print(f"wrote {args.out}")
+    return 0
+
+
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -210,6 +229,9 @@ def main(argv=None):
         MemmapGenome.build(args.fasta, args.memmap)
         print(f"wrote {args.memmap} (+ .json index)")
         return 0
+
+    if args.command == "convert":
+        return _convert(args)
 
     if args.command == "expectation":
         src = args.source

@@ -1,17 +1,21 @@
 """Model bundles (counterpart of orca_tpu/models/zoo.py): each model's
 parameters plus its distance backgrounds (`normmats`/`epss` for the 1-32 Mb
 and the standalone 1 Mb models, `background_cis`/`background_trans` for the
-32-256 Mb models)."""
+32-256 Mb models). Bundles come from the reference's torch statedicts
+(`load_*_bundle`, through models/convert.py), from pickles (`load_bundle`),
+or from a seed (`random_*_bundle`)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from orca_tpu_torch.models import convert
 from orca_tpu_torch.nn import decoders, encoders
 from orca_tpu_torch.nn.core import fold_params
 from orca_tpu_torch.utils.config import resolve_device
@@ -268,38 +272,225 @@ def load_bundle(path: str, device=None, dtype: Optional[str] = None):
     return _load(path, device=device, dtype=dtype)
 
 
-def _needs(item: str, what: str):
-    raise NotImplementedError(
-        f"{what} is not ported to orca_tpu_torch yet (ROADMAP {item}); "
-        "convert the model with the JAX package and save it as an "
-        "orca_<name>.bundle pickle"
-    )
+# --------------------------------------------------------------------------
+# Construction from the reference's torch statedicts
+# --------------------------------------------------------------------------
+
+_EXPECTED_FILES = {
+    "h1esc": "4DNFI9GMP2J8.rebinned.mcool.expected.res4000.npy",
+    "hff": "4DNFI643OYP9.rebinned.mcool.expected.res4000.npy",
+    "hctnoc": "4DNFILP99QJS.HCT_auxin6h.rebinned.mcool.expected.res4000.npy",
+}
+_STEMS = {"h1esc": "4DNFI9GMP2J8", "hff": "4DNFI643OYP9"}
+
+
+def _statedict(model_dir: str, stem: str) -> dict:
+    return convert.load_statedict(
+        os.path.join(model_dir, f"orca_{stem}.statedict"))
 
 
 def load_32m_bundle(model_dir: str, resource_dir: str, name: str,
-                    fold: bool = True, nbins: int = 8000,
-                    crop: int = 250) -> ModelBundle:
-    """A 1-32 Mb bundle from the reference's torch statedicts: needs the
-    statedict converter (ROADMAP A13)."""
-    _needs("A13", "loading a 32 Mb bundle from torch statedicts")
+                    fold: bool = True, nbins: int = 8000, crop: int = 250,
+                    device=None) -> ModelBundle:
+    """A 1-32 Mb bundle ('h1esc', 'hff' or 'hctnoc') from the reference's
+    statedicts: the pyramid from orca_<name>.net, the tower and the
+    `Decoder_1m` head from the stage-a Net in orca_<name>.net0, one decoder
+    per level from orca_<name>.d<level>. HCTnoc has a pyramid without the
+    upward pass, nearest upsampling and no `Decoder_1m` head. float32 on
+    `device` (None = CUDA), BatchNorm folded there when `fold`; nbins/crop
+    scale the background for small test geometries."""
+    device = resolve_device(device)
+    up_pass = name != "hctnoc"
+    upsample_mode = "bilinear" if up_pass else "nearest"
+    pyramid = convert.convert_pyramid(
+        _statedict(model_dir, f"{name}.net"), levels=5, up_pass=up_pass,
+        device=device)
+    net0_sd = _statedict(model_dir, f"{name}.net0")
+    encoder = convert.convert_encoder_tower(net0_sd, device=device)
+    decoder_1pt = (convert.convert_decoder1m(net0_sd, device=device)
+                   if up_pass else None)
+    del net0_sd
+    dec = {
+        level: convert.convert_decoder(
+            _statedict(model_dir, f"{name}.d{level}"), device=device)
+        for level in LEVELS_32M
+    }
+    expected_log = np.load(os.path.join(resource_dir, _EXPECTED_FILES[name]))
+    normmats, epss = normmats_from_expectation(expected_log, nbins=nbins,
+                                               crop=crop)
+    bundle = ModelBundle(
+        name=name,
+        encoder=encoder,
+        pyramid=pyramid,
+        decoders=dec,
+        decoder_1pt=decoder_1pt,
+        normmats=normmats,
+        epss=epss,
+        upsample_mode=upsample_mode,
+        pyramid_up_pass=up_pass,
+    )
+    return fold_bundle(bundle) if fold else bundle
 
 
 def load_256m_bundle(model_dir: str, resource_dir: str, name: str,
-                     fold: bool = True) -> Model256MBundle:
-    """A 32-256 Mb bundle from the reference's torch statedicts: needs the
-    statedict converter (ROADMAP A13)."""
-    _needs("A13", "loading a 256 Mb bundle from torch statedicts")
+                     fold: bool = True, device=None) -> Model256MBundle:
+    """A 32-256 Mb bundle ('h1esc' or 'hff'): the 3-level pyramid from
+    orca_<name>_256m.net and its decoders from orca_<name>_256m.d<level>;
+    the tower and the 5-level pyramid are the 32 Mb model's (orca_<name>.net0
+    and orca_<name>.net). float32 on `device` (None = CUDA), folded there
+    when `fold`."""
+    device = resolve_device(device)
+    pyramid = convert.convert_pyramid(
+        _statedict(model_dir, f"{name}_256m.net"), levels=3, up_pass=True,
+        device=device)
+    encoder = convert.convert_encoder_tower(
+        _statedict(model_dir, f"{name}.net0"), device=device)
+    pyramid1 = convert.convert_pyramid(
+        _statedict(model_dir, f"{name}.net"), levels=5, up_pass=True,
+        device=device)
+    dec = {
+        level: convert.convert_decoder(
+            _statedict(model_dir, f"{name}_256m.d{level}"), device=device)
+        for level in LEVELS_256M
+    }
+    stem = os.path.join(resource_dir,
+                        f"{_STEMS[name]}.rebinned.mcool.expected.res32000")
+    cis = np.load(f"{stem}.mono.npy")
+    trans = np.load(f"{stem}.trans.npy")
+    bundle = Model256MBundle(
+        name=f"{name}_256m",
+        encoder=encoder,
+        pyramid1=pyramid1,
+        pyramid=pyramid,
+        decoders=dec,
+        background_cis=np.hstack([np.exp(cis), np.repeat(np.nan, 2000)]),
+        background_trans=float(np.exp(trans)),
+    )
+    return fold_256m_bundle(bundle) if fold else bundle
+
+
+def load_1m_bundle(model_dir: str, resource_dir: str, name: str,
+                   device=None) -> Model1MBundle:
+    """A standalone 1 Mb bundle ('h1esc': 32 tracks, 'hff': 22) from the
+    stage-a Net in orca_<name>.net0, float32 on `device` (None = CUDA) and
+    unfolded, as the JAX package loads it (load_resources folds it)."""
+    device = resolve_device(device)
+    num_1d = {"h1esc": 32, "hff": 22}[name]
+    net = convert.convert_net(_statedict(model_dir, f"{name}.net0"),
+                              num_1d=num_1d, device=device)
+    expected_log = np.load(os.path.join(
+        resource_dir, f"{_STEMS[name]}.rebinned.mcool.expected.res1000.npy"))
+    normmats, epss = normmat_1m_from_expectation(expected_log)
+    return Model1MBundle(name=f"{name}_1m", net=net, num_1d=num_1d,
+                         normmats=normmats, epss=epss)
+
+
+# --------------------------------------------------------------------------
+# The multi-cell-type leukemia family
+# --------------------------------------------------------------------------
+
+_LEUKEMIA_NORMMAT_FILES = {
+    # one expectation per output head, in head order
+    "leukemiaA": [
+        "GSE134761_TALL_all.hg38.no_filter.1000.mcool.expected.res4000.npy",
+        "THP1.hg38.no_filter.1000.mcool.expected.res4000.npy",
+    ],
+    "leukemiaB": [
+        "4DNFIXP4QG5B.mcool.rebinned.mcool.expected.res4000.npy",
+        "NALM6.hg38.no_filter.1000.mcool.expected.res4000.npy",
+        "GSE146901_T_ALL_NonETP.hg38.no_filter.1000.mcool.expected.res4000.npy",
+        "GSE146901_T_ALL_ETP.hg38.no_filter.1000.mcool.expected.res4000.npy",
+        "GSE63525_K562.hg38.no_filter.1000.mcool.expected.res4000.npy",
+        "GSE63525_KBM7.hg38.no_filter.1000.mcool.expected.res4000.npy",
+    ],
+}
+
+
+def multi_normmats_from_expectations(expected_logs, levels=LEVELS_32M,
+                                     nbins: int = 8000, crop: int = 250):
+    """Stacked per-head backgrounds: each level maps to a (num_2d, crop,
+    crop) array, with one scalar eps (the least value) across heads."""
+    idx = np.abs(np.arange(nbins)[None, :] - np.arange(nbins)[:, None])
+    mats = np.stack([np.exp(e[:nbins])[idx] for e in expected_logs])
+    normmats, epss = {}, {}
+    for level in levels:
+        n = crop * level
+        r = (
+            mats[:, :n, :n]
+            .reshape(len(expected_logs), crop, level, crop, level)
+            .mean(axis=4)
+            .mean(axis=2)
+        )
+        normmats[level] = r
+        epss[level] = float(np.min(r))
+    return normmats, epss
 
 
 def load_leukemia_bundle(model_dir: str, resource_dir: str, name: str,
-                         fold: bool = True) -> ModelBundle:
-    """A multi-cell-type leukemia bundle: needs the variant families
-    (ROADMAP A12)."""
-    _needs("A12", "the leukemia model family")
+                         fold: bool = True, device=None) -> ModelBundle:
+    """A multi-cell-type leukemia bundle: 'leukemiaA' (2 heads) or
+    'leukemiaB' (6 heads), laid out in files as the 32 Mb models are. Its
+    pyramid has no upward pass, its decoders upsample nearest and take one
+    distance-encoding channel and give one output channel per head. float32
+    on `device` (None = CUDA), folded there when `fold`. The backgrounds take
+    num_2d x 512 MB of host memory while they are built."""
+    device = resolve_device(device)
+    files = _LEUKEMIA_NORMMAT_FILES[name]
+    num_2d = len(files)
+    pyramid = convert.convert_pyramid(
+        _statedict(model_dir, f"{name}.net"), levels=5, up_pass=False,
+        device=device)
+    net0_sd = _statedict(model_dir, f"{name}.net0")
+    encoder = convert.convert_encoder_tower(net0_sd, device=device)
+    decoder_1pt = convert.convert_decoder1m(net0_sd, num_2d=num_2d,
+                                            device=device)
+    del net0_sd
+    dec = {
+        level: convert.convert_decoder(
+            _statedict(model_dir, f"{name}.d{level}"), num_2d=num_2d,
+            device=device)
+        for level in LEVELS_32M
+    }
+    normmats, epss = multi_normmats_from_expectations(
+        [np.load(os.path.join(resource_dir, f)) for f in files])
+    bundle = ModelBundle(
+        name=name,
+        encoder=encoder,
+        pyramid=pyramid,
+        decoders=dec,
+        decoder_1pt=decoder_1pt,
+        normmats=normmats,
+        epss=epss,
+        upsample_mode="nearest",
+        pyramid_up_pass=False,
+        num_2d=num_2d,
+    )
+    return fold_bundle(bundle) if fold else bundle
 
 
-def load_1m_bundle(model_dir: str, resource_dir: str,
-                   name: str) -> Model1MBundle:
-    """A standalone 1 Mb bundle from the reference's stage-a statedict: needs
-    the statedict converter (ROADMAP A13)."""
-    _needs("A13", "loading a 1 Mb bundle from torch statedicts")
+def random_leukemia_bundle(seed: int = 0, num_2d: int = 2, device=None, *,
+                           name: str = "random_leukemia", nbins: int = 8000,
+                           crop: int = 250) -> ModelBundle:
+    """A leukemia-family bundle with torch's default conv init from `seed`
+    (float32, BatchNorm unfolded) on `device` (None = CUDA), with the JAX
+    package's smooth per-head backgrounds."""
+    device = resolve_device(device)
+    gen = torch.Generator().manual_seed(seed)
+    d = np.arange(nbins, dtype=np.float64)
+    normmats, epss = multi_normmats_from_expectations(
+        [-1.5 * np.log1p(d) - 2.0 - 0.1 * i for i in range(num_2d)],
+        nbins=nbins, crop=crop)
+    bundle = ModelBundle(
+        name=name,
+        encoder=encoders.init_encoder_tower(gen),
+        pyramid=encoders.init_pyramid(gen, 5, False),
+        decoders={lv: decoders.init_decoder(gen, num_2d)
+                  for lv in LEVELS_32M},
+        decoder_1pt=decoders.init_decoder1m(gen, num_2d),
+        normmats=normmats,
+        epss=epss,
+        upsample_mode="nearest",
+        pyramid_up_pass=False,
+        num_2d=num_2d,
+    )
+    return _map_params(bundle, lambda t: t.to(device))

@@ -70,17 +70,19 @@ def load_resources(models=("32M",), model_dir: Optional[str] = None,
     `device` (None = CUDA), plus genome and observed micro-C target handles
     when the resource files exist.
 
-    Each model loads from an ``orca_<name>.bundle`` pickle in model_dir in
-    float32, is folded (the card's encoder tower takes folded parameters
-    only), then cast to dtype (default: config param_dtype /
+    Each model loads in float32, from an ``orca_<name>.bundle`` pickle in
+    model_dir when there is one, else from the reference's torch statedicts
+    there (`zoo.load_*_bundle`; the leukemia family from statedicts only, as
+    in the JAX package), is folded (the card's encoder tower takes folded
+    parameters only), then cast to dtype (default: config param_dtype /
     ORCA_TPU_PARAM_DTYPE): 'bfloat16' is the serving precision, 'float32'
     reference parity. Folding comes before the cast, as in the JAX package,
-    where the 32 Mb and 256 Mb bundles are folded in float32 when they are
-    converted. The 1 Mb family is folded too, though the JAX package loads
-    and runs it unfolded: both give the same maps to float32 rounding. A
-    model dir without the pickle takes the statedict loaders, which raise
-    until the converter is ported (ROADMAP A13); the leukemia family raises
-    likewise (A12)."""
+    where the 32 Mb, 256 Mb and leukemia bundles are folded in float32 when
+    they are converted. The 1 Mb family is folded too, though the JAX
+    package loads and runs it unfolded: both give the same maps to float32
+    rounding. 'leukemia' loads whichever of leukemiaA/leukemiaB has an
+    orca_<name>.net.statedict and raises FileNotFoundError when neither
+    has."""
     device = resolve_device(device)
     cfg = get_config()
     model_dir = model_dir or cfg.model_dir
@@ -93,7 +95,7 @@ def load_resources(models=("32M",), model_dir: Optional[str] = None,
     def load(key, fallback, *a):
         p = _bundle_path(model_dir, key)
         if p is None:
-            return fallback(*a)
+            return _fold(fallback(*a, device=device))
         return _fold(zoo.load_bundle(p, device=device, dtype="float32"))
 
     if "32m" in wanted:
@@ -128,7 +130,7 @@ def load_resources(models=("32M",), model_dir: Optional[str] = None,
                 os.path.join(model_dir, f"orca_{name}.net.statedict")
             ):
                 out_models[name] = zoo.load_leukemia_bundle(
-                    model_dir, resource_dir, name
+                    model_dir, resource_dir, name, device=device
                 )
                 found = True
         if not found:

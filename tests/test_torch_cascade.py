@@ -4,7 +4,8 @@ CascadeGeometry(1_024_000, 4000, 8), on one bundle built with numpy from the
 JAX specs and folded; and the bundle pickle round trip from the JAX
 package's `zoo.save_bundle` into the port's `load_bundle`.
 
-Zoom starts must be equal; fp32 maps agree to max|d| <= 1e-4.
+Zoom starts must be equal; fp32 maps agree to max|d| <= 2.0e-6, the bar the
+JAX package holds against the original Orca.
 """
 
 import jax
@@ -87,7 +88,7 @@ def test_genomepredict_matches_jax(bundles, mpos_frac):
     for j, (g, w) in enumerate(zip(got["predictions"][0],
                                    want["predictions"][0])):
         assert g.shape == (GEOM_J.crop, GEOM_J.crop)
-        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4,
+        np.testing.assert_allclose(g, w, rtol=0, atol=2.0e-6,
                                    err_msg=f"level index {j}")
 
 

@@ -9,6 +9,8 @@
   * the serve loop of tests/test_launch.py through both packages' `main`:
     equal output lines and resource loads, with and without --prewarm;
   * `build-genome` and `expectation`: byte-equal files;
+  * `convert` on one directory of reference-format statedicts: the bundles
+    both packages pickle are equal;
   * the device rule: no CUDA and no --cpu refuses a prediction before any
     model runs; --seq-shards > 1 and the unported subcommands name their
     ROADMAP item.
@@ -32,6 +34,8 @@ from orca_tpu_torch.models import zoo as tzoo
 from orca_tpu_torch.predict import multiscale as tms
 from orca_tpu_torch.predict import pipelines as tpipe
 from orca_tpu_torch.predict import resources as tres
+from test_torch_convert import (bundles_equal, write_model_files,
+                                write_resource_files)
 from test_torch_retrieval import cooler_path  # noqa: F401  (fixture)
 
 PACKAGES = {"jax": (jcli, jpipe, jres, jms, jzoo),
@@ -424,10 +428,41 @@ def test_prediction_without_cuda_needs_cpu(tmp_path, monkeypatch, capsys):
     assert seen == [True]
 
 
+@pytest.fixture(scope="module")
+def statedict_dirs(tmp_path_factory):
+    """(model dir, resource dir) of reference-format statedicts for the
+    h1esc and hff 32 Mb models and the h1esc 256 Mb model, and the
+    expectation files."""
+    root = tmp_path_factory.mktemp("statedicts")
+    dirs = str(root / "models"), str(root / "resources")
+    write_model_files(dirs[0], ["h1esc", "hff", "h1esc_256m"], seed=1)
+    write_resource_files(dirs[1])
+    return dirs
+
+
+@pytest.mark.parametrize("family,name", [("1m", "hff"), ("256m", "h1esc")])
+def test_convert_equal(statedict_dirs, family, name, tmp_path, capsys):
+    """Both packages' `convert` on one directory: the same line printed and
+    pickles whose bundles are equal (parameters leaf for leaf, backgrounds
+    in value and dtype)."""
+    model_dir, resource_dir = statedict_dirs
+    said = {}
+    for pkg in ("jax", "torch"):
+        out = str(tmp_path / f"{pkg}.bundle")
+        argv = ["convert", family, name, out, "--model-dir", model_dir,
+                "--resource-dir", resource_dir]
+        assert PACKAGES[pkg][0].main(argv) == 0
+        said[pkg] = capsys.readouterr().out.replace(pkg, "<pkg>")
+    assert said["torch"] == said["jax"] == f"wrote {tmp_path}/<pkg>.bundle\n"
+    want = jzoo.load_bundle(str(tmp_path / "jax.bundle"))
+    got = tzoo.load_bundle(str(tmp_path / "torch.bundle"), device="cpu",
+                           dtype="float32")
+    bundles_equal(got, want)
+
+
 @pytest.mark.parametrize("argv,item", [
     (["region", "chr1:1-2", "out", "--cpu", "--seq-shards", "2"], "A16"),
-    (["convert", "32m", "h1esc", "out.bundle"], "A13"),
-    (["certify", "/ref", "--synthetic"], "A13"),
+    (["certify", "/ref", "--synthetic"], "A17"),
     (["train", "a", "--config", "job.json"], "A15"),
     (["bench"], "A14"),
 ])

@@ -44,7 +44,8 @@ def test_command_line_and_1m_family_are_checked_sources():
     """The command line, the 1 Mb family and the expectation files module are
     among the sources held to the rule above."""
     sources = set(_port_sources())
-    for rel in ("cli.py", "predict/onemb.py", "data/expectation.py"):
+    for rel in ("cli.py", "predict/onemb.py", "data/expectation.py",
+                "models/convert.py"):
         assert PORT / rel in sources, rel
 
 
@@ -124,6 +125,32 @@ def test_1m_family_and_warmups_need_cuda_unless_told_cpu():
     bundle = zoo.random_1m_bundle(0, num_1d=None, device="cpu")
     assert isinstance(bundle, zoo.Model1MBundle)
     assert bundle.net["encoder"]["lconv"][0][0]["w"].device.type == "cpu"
+
+
+def test_converter_and_loaders_need_cuda_unless_told_cpu():
+    """The statedict converters, the statedict loaders and the leukemia
+    family's random bundle take device=None as CUDA."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    from orca_tpu_torch.models import convert, zoo
+    from orca_tpu_torch.nn import decoders
+
+    head = decoders.final1d_spec(4)
+    params = [{"w": torch.zeros(1, 128, 128), "b": torch.zeros(128),
+               "bn": {k: torch.ones(128) for k in ("scale", "bias", "mean",
+                                                  "var")}},
+              {"w": torch.zeros(1, 128, 4), "b": torch.zeros(4)}]
+    sd = convert.block_statedict(params, "final_1d.", head)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.convert_block(sd, "final_1d.", head)
+    got = convert.convert_block(sd, "final_1d.", head, device="cpu")
+    assert got[1]["w"].device.type == "cpu"
+    for loader in (zoo.load_32m_bundle, zoo.load_256m_bundle,
+                   zoo.load_1m_bundle, zoo.load_leukemia_bundle):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            loader("unused", "unused", "h1esc")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        zoo.random_leukemia_bundle(0)
 
 
 class _ReachedTheCascade(Exception):

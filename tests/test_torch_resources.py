@@ -12,6 +12,7 @@ micro-C target handles are compared on a small FASTA and a cooler written by
 the port's `write_cooler`.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -22,10 +23,13 @@ import torch
 from orca_tpu.models import zoo as jzoo
 from orca_tpu.nn import decoders as jdec
 from orca_tpu.nn import encoders as jenc
+from orca_tpu.nn.core import fold_params as jfold
 from orca_tpu.predict import resources as jres
 from orca_tpu_torch.data import mcool as tmcool
 from orca_tpu_torch.models import zoo as tzoo
 from orca_tpu_torch.predict import resources as tres
+from test_torch_convert import (bundles_equal, write_model_files,
+                                write_resource_files)
 from test_torch_encoders import numpy_tree
 
 GRCH38 = "Homo_sapiens.GRCh38.dna.primary_assembly"
@@ -287,20 +291,74 @@ def test_load_targets_equal(tmp_path):
             np.testing.assert_array_equal(g, w)
 
 
-def test_missing_models_raise(tmp_path):
+@pytest.fixture(scope="module")
+def statedict_dirs(tmp_path_factory):
+    """(model dir, resource dir) of reference-format statedicts for the
+    h1esc and hff 32 Mb and 256 Mb models, and the expectation files."""
+    root = tmp_path_factory.mktemp("statedicts")
+    dirs = str(root / "models"), str(root / "resources")
+    write_model_files(dirs[0], ["h1esc", "hff", "h1esc_256m", "hff_256m"])
+    write_resource_files(dirs[1])
+    return dirs
+
+
+def jax_1m_folded(bundle):
+    """A JAX-package Model1MBundle with its Net folded by the JAX package's
+    fold_params (its load_resources keeps the 1 Mb family unfolded)."""
+    spec = {"encoder": jenc.encoder_tower_spec(),
+            "decoder": jdec.decoder1m_spec(1),
+            "final_1d": jdec.final1d_spec(bundle.num_1d)}
+    return dataclasses.replace(bundle, net=jfold(bundle.net, spec))
+
+
+def test_missing_models_raise(tmp_path, statedict_dirs):
     """Leukemia without statedicts raises FileNotFoundError in both
-    packages; the statedict branch and the unported families raise
-    NotImplementedError in the port, naming the ROADMAP item."""
+    packages. A model dir without bundle pickles takes the statedict
+    loaders: the 1 Mb and 256 Mb families load from the reference's
+    statedicts equal to the JAX package's load_resources on the same
+    directory (the 1 Mb Net folded in both), and a missing statedict raises
+    FileNotFoundError in both."""
     empty = str(tmp_path)
     for mod, kw in ((jres, {}), (tres, {"device": "cpu"})):
         with pytest.raises(FileNotFoundError, match="leukemia"):
             mod.load_resources(models=["leukemia"], model_dir=empty,
                                resource_dir=empty, **kw)
-    for models, item in ((["32M"], "A13"), (["256M"], "A13"), (["1M"], "A13")):
-        with pytest.raises(NotImplementedError, match=item):
-            tres.load_resources(models=models, model_dir=empty,
-                                resource_dir=empty, device="cpu")
-    (tmp_path / "orca_leukemiaA.net.statedict").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tres.load_resources(models=["leukemia"], model_dir=empty,
-                            resource_dir=empty, device="cpu")
+        with pytest.raises(FileNotFoundError, match="statedict"):
+            mod.load_resources(models=["256M"], model_dir=empty,
+                               resource_dir=empty, **kw)
+    model_dir, resource_dir = statedict_dirs
+    want = jres.load_resources(models=["1M", "256M"], model_dir=model_dir,
+                               resource_dir=resource_dir, dtype="float32")
+    got = tres.load_resources(models=["1M", "256M"], model_dir=model_dir,
+                              resource_dir=resource_dir, dtype="float32",
+                              device="cpu")
+    assert list(got.models) == list(want.models) == [
+        "h1esc_1m", "hff_1m", "h1esc_256m", "hff_256m"]
+    for name, w in want.models.items():
+        if name.endswith("_1m"):
+            w = jax_1m_folded(w)
+        bundles_equal(got.models[name], w)
+
+
+@pytest.mark.slow
+def test_load_resources_statedicts_32m_and_leukemia(tmp_path):
+    """The 32 Mb (h1esc, hff, hctnoc) and leukemia (A and B) families from
+    statedicts through both packages' load_resources, at their full 8000-bin
+    backgrounds (leukemiaB takes about 3.5 GB of host memory while they are
+    built)."""
+    model_dir, resource_dir = str(tmp_path / "models"), str(tmp_path / "res")
+    write_model_files(model_dir, ["h1esc", "hff", "hctnoc", "leukemiaA",
+                                  "leukemiaB"], seed=2)
+    write_resource_files(resource_dir)
+    for models, names in ((["32M"], ["h1esc", "hff", "hctnoc"]),
+                          (["leukemia"], ["leukemiaA", "leukemiaB"])):
+        want = jres.load_resources(models=models, model_dir=model_dir,
+                                   resource_dir=resource_dir,
+                                   dtype="float32")
+        got = tres.load_resources(models=models, model_dir=model_dir,
+                                  resource_dir=resource_dir, dtype="float32",
+                                  device="cpu")
+        assert list(got.models) == list(want.models) == names
+        for name, w in want.models.items():
+            bundles_equal(got.models[name], w)
+        del want, got
