@@ -86,8 +86,29 @@ Phases (any failure exits non-zero before the final line):
      leukemiaB's fp32 cascade on the card against the CPU plain path on a
      1.024 Mb window; `cli.main(["convert", "leukemia", "leukemiaB", ...])`
      in this process, its pickle equal to the bundle load_resources loaded;
- 10. one JSON line with every kernel (its launches summed over every request
-     of phases 4-9), then the device line.
+ 10. training ("training"), through the command line a user runs: both
+     kernels in fp32 at the training steps' tower shape (20 rows of 1.024 Mb
+     pieces: 800 kb blocks with their 112 kb halos), held against their
+     plain versions and timed (`stage1024kb` lines, `kernels1024kb`); one
+     stage-b step at CascadeGeometry(1_024_000, 4000, 8), levels (32, 1),
+     with pinned draws on the card against the CPU plain path: in float32
+     the loss and BatchNorm updates (the momentum tree printed), in float64
+     on shared tower features the loss, BatchNorm updates, momentum tree
+     and params, within 1e-4 * max(1, max|ref|); then per stage a synthetic
+     genome through `build-genome`, a dense store of smooth balanced maps,
+     expectations (and a 32-track BED for stage a) in a temporary `_smoke_*`
+     dir, and `cli.main(["train", ...])` at full width and geometry (a: the
+     1 Mb Net, batch 4, SWA; b: 32 Mb, six levels, 4 windows a step, from
+     a's run; c: 256 Mb, four levels, from a's and b's runs): 3 steps
+     straight, then 1 step and a resumed run to step 3 in another workdir,
+     with cuDNN deterministic. Checked: losses finite, the trainable params
+     moved and the frozen ones bit-equal, launches a step and a validation
+     equal to the group plan's (a: 0 a step), the resumed losses within
+     1e-5 of the straight run's. One `training <stage>` line each: seconds a
+     step (first and rest), its frozen tower and trainable parts, host
+     sampling, validate, save, restore, peak device memory, launches;
+ 11. one JSON line with every kernel (its launches summed over every request
+     of phases 4-9 and the training phase), then the device line.
 """
 
 from __future__ import annotations
@@ -222,7 +243,7 @@ def stage_shapes(input_bp=BLOCK_BP + 2 * HALO_BP):
 
 
 def kernel_phase(torch, enc_params, dtype, peaks, sms, piece_bp=None,
-                 rows=2):
+                 rows=2, tag=None):
     """Each kernel against its plain version, then timed; returns {kernel:
     {ms, plain_ms, bound_ms, bound_by, max_abs_err}} summed over the kernel's
     launches in one tower run. piece_bp None: a production group (2 rows of a
@@ -239,7 +260,8 @@ def kernel_phase(torch, enc_params, dtype, peaks, sms, piece_bp=None,
     esize = torch.finfo(dtype).bits // 8
     rng = np.random.RandomState(SEED)
     seg = piece_bp or BLOCK_BP + 2 * HALO_BP
-    tag = "stage" if piece_bp is None else f"stage{piece_bp // 1_000_000}mb"
+    tag = tag or ("stage" if piece_bp is None
+                  else f"stage{piece_bp // 1_000_000}mb")
     codes = rng.randint(0, 4, size=(rows, seg))
     x = torch.from_numpy(np.eye(4, dtype=np.uint8)[codes] * 4).cuda()
     totals = {}
@@ -1317,6 +1339,487 @@ def checkpoints_phase(torch, cc, zoo, seq):
     return launches
 
 
+# --------------------------------------------------------------------------
+# 10. training
+# --------------------------------------------------------------------------
+
+TRAIN_BLOCK_BP = 800_000  # the stage steps' encoder_block_bp
+TRAIN_PIECE_BP = TRAIN_BLOCK_BP + 2 * HALO_BP  # 1.024 Mb pieces
+TRAIN_GROUP_ROWS = 20  # rows of a tower group at 800 kb blocks (16 Mb)
+# per stage: chromosomes (name, bp), the target resolution, the validation
+# holdout; a stage-c window never has more than ~34% trans (NaN) entries
+TRAIN_GENOMES = {
+    "a": ([("chrA1", 4_000_000), ("chrA2", 4_000_000)], 1000, "chrA2"),
+    "b": ([("chrB1", 40_000_000), ("chrB2", 33_000_000)], 4000, "chrB2"),
+    "c": ([("chrC1", 200_000_000), ("chrC2", 60_000_000),
+           ("chrC3", 60_000_000)], 32000, "chrC3"),
+}
+
+
+def smooth_contacts(n, seed):
+    """A smooth symmetric balanced contact map of n bins: distance decay
+    times a slow checkerboard, a few filtered (NaN) rows and columns."""
+    rng = np.random.default_rng(seed)
+    idx = np.arange(n, dtype=np.float32)
+    comp = np.sign(np.sin(idx / 37.0 + rng.uniform(0, 6))).astype(np.float32)
+    m = np.abs(idx[:, None] - idx[None, :])
+    np.log1p(m, out=m)
+    m *= -1.2
+    m -= 3.0
+    np.exp(m, out=m)
+    m *= 1.0 + 0.3 * comp[:, None] * comp[None, :]
+    bad = rng.choice(n, max(1, n // 100), replace=False)
+    m[bad] = np.nan
+    m[:, bad] = np.nan
+    return m
+
+
+def write_training_resources(torch, cli, tmp):
+    """Per stage: a FASTA through `build-genome`, a dense store of smooth
+    balanced maps (.npz), expectations; stage a also a 32-track BED. Returns
+    {stage: job fields}."""
+    import contextlib
+    import io
+
+    jobs = {}
+    for stage, (chroms, res, holdout) in TRAIN_GENOMES.items():
+        fasta = os.path.join(tmp, f"genome_{stage}.fa")
+        memmap = os.path.join(tmp, f"genome_{stage}.mmap")
+        write_fasta(fasta, chroms, SEED + ord(stage))
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli.main(["build-genome", fasta, memmap]) == 0,
+                  f"build-genome {stage}")
+        os.remove(fasta)
+        store = os.path.join(tmp, f"contacts_{stage}.npz")
+        np.savez(store, **{name: smooth_contacts(bp // res, SEED + i)
+                           for i, (name, bp) in enumerate(chroms)})
+        d = np.arange(10_000, dtype=np.float64)
+        job = dict(genome_memmap=memmap, dense_store=store,
+                   validation_holdout=[holdout], test_holdout=[],
+                   checkpoint_every=1, validate_every=2, val_batches=1)
+        if stage == "c":
+            np.save(os.path.join(tmp, "bg.mono.npy"),
+                    -1.2 * np.log1p(d) - 3.0)
+            np.save(os.path.join(tmp, "bg.trans.npy"), np.float64(-9.0))
+            job.update(
+                background_cis_npy=os.path.join(tmp, "bg.mono.npy"),
+                background_trans_npy=os.path.join(tmp, "bg.trans.npy"),
+                accumulate=1)
+        else:
+            exp = os.path.join(tmp, f"expected.res{res}.npy")
+            np.save(exp, -1.2 * np.log1p(d) - 3.0)
+            job["expectation_npy"] = exp
+        if stage == "a":
+            rng = np.random.default_rng(SEED + 9)
+            names = [f"track{i}" for i in range(32)]
+            with open(os.path.join(tmp, "tracks.bed"), "w") as f:
+                for name, bp in chroms:
+                    for s in np.sort(rng.integers(0, bp - 5000, 400)):
+                        f.write(f"{name}\t{s}\t{s + int(rng.integers(200, 5000))}"
+                                f"\t{names[int(rng.integers(0, 32))]}\n")
+            with open(os.path.join(tmp, "tracks.features"), "w") as f:
+                f.write("\n".join(names) + "\n")
+            job.update(bed_path=os.path.join(tmp, "tracks.bed"),
+                       bed_features=os.path.join(tmp, "tracks.features"),
+                       batch_size=4, use_swa=True)
+        if stage == "b":
+            job["accumulate"] = 4
+        jobs[stage] = job
+    return jobs
+
+
+class TrainProbe:
+    """Times the training path's pieces and counts kernel launches, by
+    wrapping them in place for the phase (restored by `remove`): each step
+    (synchronized before and after: seconds, launches, loss), the frozen
+    tower inside it, the host sampling, validation, save and restore; and
+    the trainer each `make_trainer` builds, with a copy of its params."""
+
+    def __init__(self, torch, cc):
+        from orca_tpu_torch.data import sampler
+        from orca_tpu_torch.training import launch, loop, stages
+
+        self.torch, self.cc = torch, cc
+        self.saved = []
+        self.reset()
+
+        def launches():
+            return (cc.fused_first_stage.launches,
+                    cc.fused_conv_chain.launches)
+
+        def timed(kind, fn, sync=True):
+            def run(*a, **k):
+                if sync:
+                    torch.cuda.synchronize()
+                l0, t0 = launches(), time.perf_counter()
+                out = fn(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                self.events.append((kind, time.perf_counter() - t0,
+                                    tuple(b - a for a, b in zip(l0, launches())),
+                                    out))
+                return out
+            return run
+
+        def step_maker(make):
+            def wrapped(*a, **k):
+                opt, step = make(*a, **k)
+                return opt, timed("step", step)
+            return wrapped
+
+        def capture(make):
+            def wrapped(*a, **k):
+                tr = make(*a, **k)
+                params = getattr(tr, "params", None) or tr.trainable
+                self.trainer = tr
+                self.initial = self._clone(params)
+                self.frozen0 = self._clone(getattr(tr, "frozen", {}))
+                return tr
+            return wrapped
+
+        def patch(obj, name, new):
+            self.saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, new)
+
+        for n in ("make_stage_a_step", "make_stage_b_step",
+                  "make_stage_c_step"):
+            patch(loop, n, step_maker(getattr(loop, n)))
+        patch(stages, "_frozen_features",
+              timed("frozen", stages._frozen_features))
+        patch(sampler.RandomWindowSampler, "sample",
+              timed("sample", sampler.RandomWindowSampler.sample, sync=False))
+        for cls in (loop.StageATrainer, loop.StageBTrainer):
+            patch(cls, "validate", timed("validate", cls.validate))
+        patch(loop._Trainer, "save", timed("save", loop._Trainer.save))
+        patch(loop._Trainer, "_restore",
+              timed("restore", loop._Trainer._restore))
+        patch(launch, "make_trainer", capture(launch.make_trainer))
+
+    def _clone(self, tree):
+        from orca_tpu_torch.utils.tree import tree_map
+
+        return tree_map(lambda t: t.detach().clone(), tree)
+
+    def reset(self):
+        self.events = []
+        self.trainer = self.initial = self.frozen0 = None
+
+    def remove(self):
+        for obj, name, old in reversed(self.saved):
+            setattr(obj, name, old)
+
+
+def _split_steps(events):
+    """Per step: (seconds, frozen-tower seconds, host sampling seconds before
+    it, launches, loss); and the other events by kind."""
+    steps, other = [], {}
+    frozen = sample = 0.0
+    for kind, secs, launched, out in events:
+        if kind == "frozen":
+            frozen += secs
+        elif kind == "sample":
+            sample += secs
+        elif kind == "step":
+            steps.append((secs, frozen, sample, launched,
+                          float(out[2]["loss"])))
+            frozen = sample = 0.0
+        else:
+            other.setdefault(kind, []).append((secs, launched))
+            frozen = sample = 0.0
+    return steps, other
+
+
+def train_stage(torch, cli, probe, stage, job, tmp, runs):
+    """One stage through the command line: 3 steps straight (timed), then 1
+    step, then a resumed run to step 3 in another workdir. Returns the
+    launches of the three runs and the straight run's workdir."""
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.utils.tree import tree_leaves
+
+    window = job.get("window_bp") or {"a": 1_000_000, "b": 32_000_000,
+                                      "c": 256_000_000}[stage]
+    rows = 0 if stage == "a" else job["accumulate"]
+    block_bp = TRAIN_BLOCK_BP if window > 2_000_000 else None
+    groups = fused_group_count(rows, window, block_bp) if rows else 0
+    step_launch = (groups, 6 * groups)
+    eval_launch = ((fused_group_count(job["batch_size"], window), 6 *
+                    fused_group_count(job["batch_size"], window))
+                   if stage == "a" else step_launch)
+    total = [0, 0]
+    losses = {}
+    for run, (workdir, max_steps) in runs.items():
+        cfg = os.path.join(tmp, f"job_{stage}_{run}.json")
+        with open(cfg, "w") as f:
+            json.dump(dict(job, workdir=workdir), f)
+        probe.reset()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        check(cli.main(["train", stage, "--config", cfg, "--max-steps",
+                        str(max_steps)]) == 0, f"train {stage} {run}")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        steps, other = _split_steps(probe.events)
+        for kind, events in other.items():
+            for _, launched in events:
+                total[0] += launched[0]
+                total[1] += launched[1]
+        for s in steps:
+            total[0] += s[3][0]
+            total[1] += s[3][1]
+        first = 1 if run == "resumed" else 0
+        losses[run] = {first + i + 1: s[4] for i, s in enumerate(steps)}
+        check(all(np.isfinite(s[4]) for s in steps), f"{stage} {run}: loss")
+        check(all(s[3] == step_launch for s in steps),
+              f"{stage} {run}: launches a step {[s[3] for s in steps]} != "
+              f"{step_launch}")
+        check(all(v[1] == eval_launch for v in other.get("validate", [])),
+              f"{stage} {run}: launches a validation "
+              f"{other.get('validate')} != {eval_launch}")
+        if run == "straight":
+            tr = probe.trainer
+            params = getattr(tr, "params", None) or tr.trainable
+            moved = any(not torch.equal(a, b) for a, b in zip(
+                tree_leaves(probe.initial), tree_leaves(params)))
+            frozen_equal = all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(probe.frozen0), tree_leaves(getattr(tr, "frozen",
+                                                                {}))))
+            check(moved, f"{stage}: the trainable params did not move")
+            check(frozen_equal, f"{stage}: the frozen params changed")
+            check(len(steps) == 3 and len(other.get("validate", [])) == 1,
+                  f"{stage}: {len(steps)} steps, validations "
+                  f"{other.get('validate')}")
+            secs = [round(s[0], 3) for s in steps]
+            print(f"training {stage}: steps {len(steps)}, seconds a step "
+                  f"first {secs[0]} rest {secs[1:]}; of the rest, frozen "
+                  f"tower {[round(s[1], 3) for s in steps[1:]]}, trainable "
+                  f"forward+backward+update "
+                  f"{[round(s[0] - s[1], 3) for s in steps[1:]]}; host "
+                  f"sampling a step {[round(s[2], 3) for s in steps]}; "
+                  f"validate {[round(v[0], 3) for v in other['validate']]} s;"
+                  f" save {[round(v[0], 3) for v in other['save']]} s; "
+                  f"launches a step {steps[0][3]} (expected {step_launch}), "
+                  f"a validation {other['validate'][0][1]} (expected "
+                  f"{eval_launch}); peak device memory {peak:.2f} GiB; run "
+                  f"{wall:.1f} s; trainable moved, frozen bit-equal; losses "
+                  f"{[round(s[4], 6) for s in steps]}", flush=True)
+        elif run == "resumed":
+            print(f"training {stage} resumed: restore "
+                  f"{[round(v[0], 3) for v in other['restore']]} s, steps "
+                  f"{sorted(losses[run])}, run {wall:.1f} s, peak device "
+                  f"memory {peak:.2f} GiB", flush=True)
+    d = max(abs(losses["resumed"][k] - losses["straight"][k])
+            / max(1e-30, abs(losses["straight"][k]))
+            for k in losses["resumed"])
+    check(set(losses["resumed"]) == {2, 3}, f"{stage}: resumed steps "
+          f"{sorted(losses['resumed'])}")
+    check(losses["first"][1] == losses["straight"][1],
+          f"{stage}: step 1 differs between two runs")
+    print(f"training {stage} resume: steps 2-3 resumed vs straight, max "
+          f"relative loss difference {d:.3e} (deterministic cuDNN)",
+          flush=True)
+    check(d <= 1e-5, f"{stage}: resumed losses differ by {d}")
+    return total
+
+
+class PinnedDraws:
+    """Pins the port's draws (utils.rng) for a card-vs-CPU comparison: the
+    flip true, zoom offsets 3, 1, ... in call order, dropout masks from a
+    seed and the mask's shape."""
+
+    def __init__(self, torch):
+        from orca_tpu_torch.utils import rng
+
+        self.rng, self.torch, self.calls = rng, torch, 0
+        self.saved = (rng.coin, rng.randint, rng.bernoulli)
+
+    def __enter__(self):
+        import zlib
+
+        def bernoulli(k, p, shape, device):
+            seed = zlib.crc32(repr(tuple(int(s) for s in shape)).encode())
+            mask = np.random.RandomState(seed).rand(*shape) < p
+            return self.torch.from_numpy(mask).to(device)
+
+        def randint(k, low, high):
+            self.calls += 1
+            return (3, 1)[(self.calls - 1) % 2] % high
+
+        self.rng.coin = lambda k: True
+        self.rng.randint = randint
+        self.rng.bernoulli = bernoulli
+        return self
+
+    def __exit__(self, *exc):
+        self.rng.coin, self.rng.randint, self.rng.bernoulli = self.saved
+
+
+def _tree_err(torch, want, got, select=lambda path: True, path=""):
+    """max over leaves of max|d| / max(1, max|want|), over the leaves whose
+    path `select` keeps."""
+    if isinstance(want, dict):
+        return max([_tree_err(torch, want[k], got[k], select, f"{path}/{k}")
+                    for k in want] or [0.0])
+    if isinstance(want, list):
+        return max([_tree_err(torch, w, g, select, f"{path}/{i}")
+                    for i, (w, g) in enumerate(zip(want, got))] or [0.0])
+    if not select(path):
+        return 0.0
+    w = want.detach().double().cpu()
+    return ((got.detach().double().cpu() - w).abs().max()
+            / max(1.0, w.abs().max().item())).item()
+
+
+def training_card_vs_cpu(torch):
+    """One stage-b step at CascadeGeometry(1_024_000, 4000, 8), levels
+    (32, 1), pinned draws, on the card and on the CPU plain path: float32 as
+    the trainers run it (the frozen tower through the kernels on the card),
+    loss and BatchNorm updates checked; then float64 on the same tower
+    features, loss, BatchNorm updates and momentum tree checked (a float32
+    step's gradient is too ill-conditioned at this size to compare)."""
+    from orca_tpu_torch.models import zoo
+    from orca_tpu_torch.nn import decoders, encoders
+    from orca_tpu_torch.nn.core import fold_params
+    from orca_tpu_torch.predict.multiscale import CascadeGeometry
+    from orca_tpu_torch.training import stages
+    from orca_tpu_torch.utils.tree import tree_map
+
+    geom, levels = CascadeGeometry(1_024_000, 4000, 8), (32, 1)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    trainable = {"pyramid": encoders.init_pyramid(gen, 5, True),
+                 "decoders": {lv: decoders.init_decoder(gen) for lv in levels}}
+    frozen = {"encoder": fold_params(encoders.init_encoder_tower(gen),
+                                     encoders.encoder_tower_spec()),
+              "decoder_1pt": fold_params(decoders.init_decoder1m(gen),
+                                         decoders.decoder1m_spec(1))}
+    d = np.arange(geom.bins, dtype=np.float64)
+    nms, epss = zoo.normmats_from_expectation(
+        -1.2 * np.log1p(d) - 3.0, levels=sorted(levels), nbins=geom.bins,
+        crop=geom.crop)
+    nm = torch.tensor(np.stack([nms[lv] for lv in levels]),
+                      dtype=torch.float32)
+    ep = torch.tensor([epss[lv] for lv in levels], dtype=torch.float32)
+    rng = np.random.RandomState(SEED + 8)
+    seq = torch.from_numpy(np.eye(4, dtype=np.uint8)[
+        rng.randint(0, 4, (1, geom.window_bp))] * 4)
+    target = torch.from_numpy(smooth_contacts(geom.bins, SEED + 8)[None])
+    cfg = stages.StageBConfig(geometry=geom, levels=levels,
+                              encoder_block_bp=None)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(len(os.sched_getaffinity(0)))
+
+    def both(dtype, encoder_fn=None):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            def to(tree):
+                return tree_map(lambda t: t.to(dev, dtype)
+                                if t.is_floating_point() else t.to(dev), tree)
+            feats_fn = None if encoder_fn is None else (
+                lambda p, s, dev=dev: encoder_fn.to(dev, dtype))
+            opt, step = stages.make_stage_b_step(cfg, encoder_fn=feats_fn,
+                                                 device=dev)
+            tr, fr = to(trainable), to(frozen)
+            with PinnedDraws(torch):
+                out[dev] = step(tr, fr, opt.init(tr), seq.to(dev),
+                                target.to(dev, dtype), 123, 0.002,
+                                nm.to(dev, dtype), ep.to(dev, dtype))
+        return out
+
+    t0 = time.perf_counter()
+    f32 = both(torch.float32)
+    (tc, sc, mc), (tg, sg, mg) = f32["cpu"], f32["cuda"]
+    loss_d = abs(float(mg["loss"]) - float(mc["loss"])) / max(
+        1.0, abs(float(mc["loss"])))
+    bn_d = _tree_err(torch, tc, tg, lambda p: p.endswith(("/mean", "/var")))
+    mom32 = _tree_err(torch, sc["trace"], sg["trace"])
+    print(f"training card vs CPU, stage-b step float32 at 1.024 Mb, levels "
+          f"(32, 1): loss {float(mg['loss']):.6f} vs {float(mc['loss']):.6f} "
+          f"(|d| {loss_d:.3e} of max(1, |loss|)), BatchNorm updates "
+          f"{bn_d:.3e}, momentum tree {mom32:.3e} (not checked in float32)",
+          flush=True)
+    check(loss_d <= 1e-4 and bn_d <= 1e-4,
+          f"float32 step card vs CPU: loss {loss_d}, BN {bn_d}")
+    with torch.no_grad():
+        feats = encoders.apply_encoder_tower(frozen["encoder"], seq)
+    f64 = both(torch.float64, feats)
+    (tc, sc, mc), (tg, sg, mg) = f64["cpu"], f64["cuda"]
+    loss_d = abs(float(mg["loss"]) - float(mc["loss"])) / max(
+        1.0, abs(float(mc["loss"])))
+    bn_d = _tree_err(torch, tc, tg, lambda p: p.endswith(("/mean", "/var")))
+    mom = _tree_err(torch, sc["trace"], sg["trace"])
+    params_d = _tree_err(torch, tc, tg)
+    torch.set_num_threads(threads)
+    print(f"training card vs CPU, stage-b step float64 on shared tower "
+          f"features: loss |d| {loss_d:.3e}, BatchNorm updates {bn_d:.3e}, "
+          f"momentum tree {mom:.3e}, params {params_d:.3e} (of max(1, "
+          f"max|ref|) per leaf; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    check(max(loss_d, bn_d, mom, params_d) <= 1e-4,
+          f"float64 step card vs CPU: {loss_d} {bn_d} {mom} {params_d}")
+
+
+def training_phase(torch, cc, peaks, sms):
+    """Training through the command line a user runs: per stage a synthetic
+    genome through `build-genome`, a dense store and expectations; then
+    `cli.main(["train", ...])` at full width and geometry (a: the 1 Mb Net,
+    batch 4, SWA; b: 32 Mb, all six levels, 4 windows a step, from a's run;
+    c: 256 Mb, all four levels, from a's and b's runs): 3 steps straight,
+    then 1 step and a resumed run to step 3, with cuDNN deterministic (the
+    resume check compares losses). Before them, both kernels at the 1.024 Mb
+    piece shape and one stage-b step on the card against the CPU. Returns
+    the fp32 launches of the phase (kernel checks aside)."""
+    import tempfile
+
+    from orca_tpu_torch import cli
+    from orca_tpu_torch.nn import encoders
+    from orca_tpu_torch.nn.core import fold_params
+
+    raw = encoders.init_encoder_tower(torch.Generator().manual_seed(SEED))
+    tower = tree_cuda(torch, fold_params(raw, encoders.encoder_tower_spec()))
+    rows = kernel_phase(torch, tower, torch.float32, peaks, sms,
+                        piece_bp=TRAIN_PIECE_BP, rows=TRAIN_GROUP_ROWS,
+                        tag="stage1024kb")
+    print("kernels1024kb " + json.dumps({k: {n: round(v, 4) if isinstance(
+        v, float) and n != "max_abs_err" else v for n, v in t.items()}
+        for k, t in rows.items()}), flush=True)
+    training_card_vs_cpu(torch)
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    probe = TrainProbe(torch, cc)
+    total = [0, 0]
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+            t0 = time.perf_counter()
+            jobs = write_training_resources(torch, cli, tmp)
+            print(f"training resources: 3 genomes through build-genome, dense"
+                  f" stores, expectations, BED: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+            straight = {}
+            for stage in ("a", "b", "c"):
+                job = dict(jobs[stage])
+                if stage in ("b", "c"):
+                    job["init_workdir_a"] = straight["a"]
+                if stage == "c":
+                    job["init_workdir_b"] = straight["b"]
+                straight[stage] = os.path.join(tmp, f"run_{stage}")
+                runs = {"straight": (straight[stage], 3),
+                        "first": (os.path.join(tmp, f"resume_{stage}"), 1),
+                        "resumed": (os.path.join(tmp, f"resume_{stage}"), 3)}
+                got = train_stage(torch, cli, probe, stage, job, tmp, runs)
+                total[0] += got[0]
+                total[1] += got[1]
+    finally:
+        probe.remove()
+        torch.backends.cudnn.deterministic = cudnn
+    return {"fused_first_stage": total[0], "fused_conv_chain": total[1]}
+
+
+def tree_cuda(torch, tree):
+    from orca_tpu_torch.utils.tree import tree_map
+
+    return tree_map(lambda t: t.cuda(), tree)
+
+
 def main() -> int:
     import torch
 
@@ -1620,7 +2123,13 @@ def main() -> int:
         for k, v in counts.items():
             launches[dtype][k] += v
 
-    # 10. the kernel line and the device line
+    # 10. training, through the command line
+    counts = training_phase(torch, cc, peaks, sms)
+    for k, v in counts.items():
+        launches[torch.float32][k] += v
+    print(f"training launches: {counts}", flush=True)
+
+    # 11. the kernel line and the device line
     rows = []
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, t in kernel_rows[dtype].items():

@@ -9,11 +9,14 @@ plus framework utilities:
   serve         warm prediction server: one process keeps its models on
                 the card and answers commands read from stdin
   convert       the reference's torch statedicts -> a bundle pickle
-The JAX package's `certify`, `train` and `bench` keep their arguments here
-but are not ported yet: each exits with the ROADMAP item that will port it.
+  train         a training stage (a | b | c) from a TrainJob JSON
+The JAX package's `certify` and `bench` keep their arguments here but are
+not ported yet: each exits with the ROADMAP item that will port it.
 
 Predictions run on the CUDA card; `--cpu` runs them on the host CPU instead.
-A machine without CUDA refuses a prediction without `--cpu`.
+A machine without CUDA refuses a prediction without `--cpu`, and refuses
+`train`, which runs on the card only (tests call
+`training.launch.run(job, device="cpu")`).
 
 Coordinates: 'chr1:1000000-2000000' for region/del/dup/inv;
 'chr1:1000000|chr2:2000000|+-' for break (two breakpoints + orientations).
@@ -35,7 +38,6 @@ PREDICTION_MODES = ("region", "del", "dup", "inv", "break")
 # item of the port
 _NOT_PORTED = {
     "certify": ("A17", "certification against the reference's modules"),
-    "train": ("A15", "training"),
     "bench": ("A14", "the port's benchmark"),
 }
 
@@ -139,7 +141,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     p = sub.add_parser(
         "train",
-        help="launch a training stage (not ported yet: ROADMAP A15)",
+        help="launch a training stage on the CUDA card",
     )
     p.add_argument("stage", choices=["a", "b", "c"],
                    help="a: 1Mb Net; b: 1-32Mb Encoder2+decoders; "
@@ -153,7 +155,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workers", type=int, default=None,
                    help="prefetch loader workers")
     p.add_argument("--mesh", default=None,
-                   help="device mesh, e.g. 'data=4,seq=2'")
+                   help="device mesh, e.g. 'data=4,seq=2' (not ported yet: "
+                   "ROADMAP A16)")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--no-resume", action="store_true")
 
@@ -256,6 +259,9 @@ def main(argv=None):
     if args.command == "serve":
         return _serve(args, parser)
 
+    if args.command == "train":
+        return _train(args, parser)
+
     # prediction modes
     _check_seq_shards(args, parser)
     if not args.cpu:
@@ -279,6 +285,38 @@ def main(argv=None):
         )
 
     return _run_prediction(args, parser)
+
+
+def _train(args, parser) -> int:
+    """The JAX package's `train` action on the CUDA card: the TrainJob JSON
+    with the flags as overrides, then `training.launch.run`."""
+    import torch
+
+    from orca_tpu_torch.training.launch import TrainJob, run
+
+    if args.mesh:
+        parser.error("--mesh trains across several devices, which is not "
+                     "ported yet (ROADMAP A16)")
+    if not torch.cuda.is_available():
+        parser.error("CUDA is not available: training runs on the CUDA card")
+    job = TrainJob.from_json(
+        args.config,
+        stage=args.stage,
+        workdir=args.workdir,
+        max_steps=args.max_steps,
+        use_swa=args.swa,
+        num_workers=args.workers,
+        seed=args.seed,
+    )
+    if job.mesh or job.multihost:
+        parser.error(f"{args.config} asks for a device mesh or several hosts,"
+                     " which is not ported yet (ROADMAP A16)")
+    if args.no_resume:
+        job.resume = False
+    metrics = run(job)
+    if metrics:
+        print({k: float(v) for k, v in metrics.items()})
+    return 0
 
 
 def _serve(args, parser):

@@ -4,7 +4,9 @@
 output of ``jax.tree.map(np.asarray, params)``), into the port's tensors;
 `bundle_from_numpy` does the same for a whole bundle; `load_bundle` reads a
 bundle pickled by the JAX package's ``zoo.save_bundle`` without importing
-that package.
+that package. For training state, `opt_state_from_numpy` carries an optax
+trace state (the momentum tree) and `swa_state_from_numpy` an SWA state, so
+both packages can start a step from the same state.
 """
 
 from __future__ import annotations
@@ -46,6 +48,23 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
             "across and cast with torch"
         )
     return torch.tensor(arr, device=device, dtype=dtype or torch.float32)
+
+
+def opt_state_from_numpy(state, device=None,
+                         dtype: Optional[torch.dtype] = None) -> dict:
+    """The JAX package's SGD state as numpy (optax's TraceState, a named
+    tuple whose `trace` is the momentum tree, or a {"trace": tree} dict) ->
+    the port's {"trace": tree} on `device` (None = CUDA)."""
+    trace = state["trace"] if isinstance(state, dict) else state.trace
+    return {"trace": params_from_numpy(trace, device, dtype)}
+
+
+def swa_state_from_numpy(state, device=None,
+                         dtype: Optional[torch.dtype] = None) -> dict:
+    """The JAX package's SWA state ({"avg": params, "n": int32 count}, as
+    numpy) -> the port's {"avg": tree on `device`, "n": int}."""
+    return {"avg": params_from_numpy(state["avg"], device, dtype),
+            "n": int(np.asarray(state["n"]))}
 
 
 def bundle_from_numpy(host, device=None, dtype: Optional[torch.dtype] = None):

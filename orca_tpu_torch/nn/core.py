@@ -5,16 +5,24 @@ Blocks are data: a `Block` spec plus a parameter tree consumed by
 {'w': (K.., Cin, Cout), 'b': (Cout,), optional 'bn': {scale, bias, mean,
 var}}, tensors in the JAX layout. Inference parameters carry no BatchNorm:
 `fold_params` absorbs it into the conv weights.
+
+Training mode (`train=True`): dropout before the conv with a mask drawn from
+the unit's key (utils.rng), BatchNorm on batch statistics, and the running
+statistics' update recorded by path in a `BNUpdates`, never written in
+place, so a recomputed forward cannot apply it twice.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
+from typing import Dict, Optional
 
 import torch
 
 from orca_tpu_torch.ops import nn_ops
+from orca_tpu_torch.utils import rng as rng_lib
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,13 +101,102 @@ def init_block(gen: torch.Generator, block: Block) -> list:
     return [_init_unit(gen, u) for u in block.units]
 
 
-def apply_unit(params: dict, unit: Unit, x: torch.Tensor) -> torch.Tensor:
-    """Inference: conv -> BN -> ReLU/sigmoid (dropout is the identity)."""
+class BNUpdates:
+    """Collects training-mode BatchNorm running-statistic updates of a
+    forward, keyed by the unit's path in the parameter tree ("<block
+    path>/<unit index>"); `merge_bn_updates` writes them back after the
+    step. Momentum 0.1, from the unbiased batch variance (torch's rule)."""
+
+    def __init__(self, momentum: float = 0.1):
+        self.momentum = momentum
+        self.updates = {}  # path -> (new running mean, new running var)
+
+    def record(self, path, mean, var_unbiased):
+        self.updates[path] = (mean, var_unbiased)
+
+
+def merge_bn_updates(params, bn_updates: BNUpdates):
+    """A copy of `params` with the recorded running statistics written back.
+    Paths address dict keys and list indices, e.g. "encoder/lconv/0/1" ->
+    params["encoder"]["lconv"][0][1]["bn"]; int-keyed dicts (decoder levels)
+    are addressed by the key's digits."""
+    out = copy.copy(params) if isinstance(params, dict) else list(params)
+
+    def _set(tree, parts, mean, var):
+        head = parts[0]
+        if isinstance(tree, list) or head not in tree:
+            key = int(head)
+        else:
+            key = head
+        if len(parts) == 1:
+            unit = dict(tree[key])
+            unit["bn"] = dict(unit["bn"], mean=mean, var=var)
+            tree[key] = unit
+        else:
+            child = tree[key]
+            child = (copy.copy(child) if isinstance(child, dict)
+                     else list(child))
+            tree[key] = child
+            _set(child, parts[1:], mean, var)
+
+    for path, (mean, var) in bn_updates.updates.items():
+        _set(out, path.split("/"), mean, var)
+    return out
+
+
+def _unit_path(path: str, i: int) -> str:
+    return f"{path}/{i}" if path else str(i)
+
+
+def draw_masks(block: Block, lead_shape, rng: Optional[int], device,
+               path: str = "") -> Dict[str, torch.Tensor]:
+    """The dropout keep-masks of a block's units in training mode, keyed by
+    unit path: unit i draws from the i-th key of split(rng), as apply_block
+    hands them out. `lead_shape` is the block input's shape without its
+    channels, after the block's pool or upsample (the convs keep it)."""
+    masks = {}
+    if not any(u.dropout > 0 for u in block.units):
+        return masks
+    if rng is None:
+        raise ValueError("dropout in train mode requires an rng")
+    keys = rng_lib.split(rng, len(block.units))
+    for i, (u, k) in enumerate(zip(block.units, keys)):
+        if u.dropout > 0:
+            masks[_unit_path(path, i)] = rng_lib.bernoulli(
+                k, 1.0 - u.dropout, (*lead_shape, u.cin), device)
+    return masks
+
+
+def apply_unit(params: dict, unit: Unit, x: torch.Tensor, *,
+               train: bool = False, rng: Optional[int] = None,
+               bn_updates: Optional[BNUpdates] = None, path: str = "",
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dropout (train) -> conv -> BN -> ReLU/sigmoid. In training mode the
+    dropout mask is `mask` when given, else drawn from `rng`."""
+    if unit.dropout > 0.0 and train:
+        if mask is None:
+            if rng is None:
+                raise ValueError("dropout in train mode requires an rng")
+            mask = rng_lib.bernoulli(rng, 1.0 - unit.dropout, x.shape,
+                                     x.device)
+        x = nn_ops.dropout(x, unit.dropout, mask)
     conv = nn_ops.conv1d if unit.dim == 1 else nn_ops.conv2d
     x = conv(x, params["w"], params["b"], dilation=unit.dilation)
     if "bn" in params:
         bn = params["bn"]
-        x = nn_ops.batchnorm(x, bn["scale"], bn["bias"], bn["mean"], bn["var"])
+        if train:
+            x, bmean, _bvar, bvar_u = nn_ops.batchnorm_train(
+                x, bn["scale"], bn["bias"])
+            if bn_updates is not None:
+                m = bn_updates.momentum
+                bn_updates.record(
+                    path,
+                    ((1 - m) * bn["mean"] + m * bmean).detach(),
+                    ((1 - m) * bn["var"] + m * bvar_u).detach(),
+                )
+        else:
+            x = nn_ops.batchnorm(x, bn["scale"], bn["bias"], bn["mean"],
+                                 bn["var"])
     if unit.relu:
         x = nn_ops.relu(x)
     if unit.sigmoid:
@@ -107,7 +204,14 @@ def apply_unit(params: dict, unit: Unit, x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def apply_block(params: list, block: Block, x: torch.Tensor) -> torch.Tensor:
+def apply_block(params: list, block: Block, x: torch.Tensor, *,
+                train: bool = False, rng: Optional[int] = None,
+                bn_updates: Optional[BNUpdates] = None, path: str = "",
+                masks: Optional[Dict[str, torch.Tensor]] = None
+                ) -> torch.Tensor:
+    """Pool/upsample, then the units. Unit i takes the i-th key of
+    split(rng) and the path "<path>/<i>"; `masks` (from draw_masks) supplies
+    dropout masks drawn ahead, as a checkpointed block needs."""
     if block.pool:
         x = nn_ops.maxpool1d(x, block.pool)
     if block.upsample:
@@ -118,8 +222,14 @@ def apply_block(params: list, block: Block, x: torch.Tensor) -> torch.Tensor:
                 x = nn_ops.upsample2d_nearest(x, block.upsample)
         else:
             x = nn_ops.upsample1d_nearest(x, block.upsample)
-    for p, u in zip(params, block.units):
-        x = apply_unit(p, u, x)
+    if train and masks is None:
+        masks = draw_masks(block, x.shape[:-1], rng, x.device, path)
+    keys = (rng_lib.split(rng, len(block.units)) if rng is not None
+            else [None] * len(block.units))
+    for i, (p, u, k) in enumerate(zip(params, block.units, keys)):
+        upath = _unit_path(path, i)
+        x = apply_unit(p, u, x, train=train, rng=k, bn_updates=bn_updates,
+                       path=upath, mask=(masks or {}).get(upath))
     return x
 
 

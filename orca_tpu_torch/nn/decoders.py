@@ -1,4 +1,4 @@
-"""Orca 2D decoders (counterpart of orca_tpu/nn/decoders.py), inference.
+"""Orca 2D decoders (counterpart of orca_tpu/nn/decoders.py).
 
   * `decoder_*`: the per-level pairwise decoder with distance encoding and
     optional coarse-prediction refinement;
@@ -9,16 +9,30 @@
 
 All 2D work is (N, H, W, C) on crop x crop maps; the convs run as cuDNN
 convolutions in the channels-last memory format.
+
+Training mode (`train=True`) runs the same blocks with dropout, batch
+statistics and recorded BatchNorm updates (nn.core); `remat_blocks` and
+`remat` recompute activations in the backward (`torch.utils.checkpoint`),
+with every dropout mask drawn before the checkpoint and passed in.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from orca_tpu_torch.nn import encoders
-from orca_tpu_torch.nn.core import Block, Unit, apply_block, conv_pair_2d, init_block
+from orca_tpu_torch.nn.core import (
+    Block,
+    BNUpdates,
+    Unit,
+    apply_block,
+    conv_pair_2d,
+    draw_masks,
+    init_block,
+)
 from orca_tpu_torch.ops import nn_ops
 
 # Dilation schedules: Decoder uses 4 groups of (1..64); Decoder_1m one group
@@ -87,20 +101,57 @@ def symmetrize(m: torch.Tensor) -> torch.Tensor:
     return 0.5 * m + 0.5 * m.transpose(1, 2)
 
 
+def _recompute(fn, *args):
+    """fn(*args) with its activations recomputed in the backward. The
+    default generators' states are not saved: no draw happens inside."""
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def apply_decoder(params: dict, x: torch.Tensor, distenc: torch.Tensor,
                   y: Optional[torch.Tensor] = None, *, num_2d: int = 1,
-                  upsample_mode: str = "bilinear") -> torch.Tensor:
+                  upsample_mode: str = "bilinear", train: bool = False,
+                  rng: Optional[int] = None,
+                  bn_updates: Optional[BNUpdates] = None, path: str = "",
+                  remat_blocks: bool = False) -> torch.Tensor:
     """Per-level decoder forward.
 
     x: (N, crop, 128) encoding crop; distenc: (N, crop, crop, num_2d) log
     background; y: optional (N, crop/2, crop/2, num_2d) coarse prediction of
     the parent level. Returns the (N, crop, crop, num_2d) symmetric map.
+
+    Training: every block takes the same `rng`, as in the JAX package, so
+    same-shaped dropout units draw the same mask. remat_blocks checkpoints
+    each block, keeping only its input for the backward; its masks are drawn
+    before the checkpoint.
     """
     spec = decoder_spec(num_2d)
+    pre = f"{path}/" if path else ""
+    kw = dict(train=train, rng=rng, bn_updates=bn_updates)
+
+    if train and remat_blocks:
+        def block(p, b, cur, bpath):
+            masks = draw_masks(b, cur.shape[:-1], rng, cur.device, bpath)
+
+            def f(cur, masks):
+                local = BNUpdates()
+                out = apply_block(p, b, cur, train=True, rng=rng,
+                                  bn_updates=local, path=bpath, masks=masks)
+                return out, local.updates
+
+            out, upd = _recompute(f, cur, masks)
+            if bn_updates is not None:
+                bn_updates.updates.update(upd)
+            return out
+    else:
+        def block(p, b, cur, bpath):
+            return apply_block(p, b, cur, path=bpath, **kw)
+
     distenc = distenc.to(x.dtype)
     mat = torch.cat([pairwise(x), distenc], dim=-1)
-    mat = apply_block(params["lcombinerD"], spec["lcombinerD"], mat)
-    mat = apply_block(params["combinerD"], spec["combinerD"], mat) + mat
+    mat = block(params["lcombinerD"], spec["lcombinerD"], mat,
+                f"{pre}lcombinerD")
+    mat = block(params["combinerD"], spec["combinerD"], mat,
+                f"{pre}combinerD") + mat
     if y is not None:
         mat = torch.cat([mat, _upsample_coarse(y.to(x.dtype), upsample_mode)],
                         dim=-1)
@@ -111,14 +162,16 @@ def apply_decoder(params: dict, x: torch.Tensor, distenc: torch.Tensor,
     )):
         if i == 0 and y is not None:
             # with a coarse pred the combiner pair replaces the first block
-            cur = apply_block(params["lcombiner"], spec["lcombiner"], cur)
-            cur = apply_block(params["combiner"], spec["combiner"], cur) + cur
+            cur = block(params["lcombiner"], spec["lcombiner"], cur,
+                        f"{pre}lcombiner")
+            cur = block(params["combiner"], spec["combiner"], cur,
+                        f"{pre}combiner") + cur
             continue
-        lout = apply_block(lp, lb, cur)
+        lout = block(lp, lb, cur, f"{pre}lconvtwos/{i}")
         # the very first block has no residual (it has no coarse map input)
         cur = lout if i == 0 else lout + cur
-        cur = apply_block(cp, cb, cur) + cur
-    cur = apply_block(params["final"], spec["final"], cur)
+        cur = block(cp, cb, cur, f"{pre}convtwos/{i}") + cur
+    cur = block(params["final"], spec["final"], cur, f"{pre}final")
     return symmetrize(cur)
 
 
@@ -138,26 +191,51 @@ def init_decoder1m(gen: torch.Generator, num_2d: int = 1) -> dict:
 
 
 def apply_decoder1m_mat(params: dict, mat: torch.Tensor, *,
-                        num_2d: int = 1) -> torch.Tensor:
-    """2D stack over an already-built pairwise map (N, crop, crop, 128)."""
+                        num_2d: int = 1, train: bool = False,
+                        rng: Optional[int] = None,
+                        bn_updates: Optional[BNUpdates] = None,
+                        path: str = "",
+                        masks: Optional[Dict[str, torch.Tensor]] = None
+                        ) -> torch.Tensor:
+    """2D stack over an already-built pairwise map (N, crop, crop, 128).
+    Every block takes the same `rng`; `masks` (from `decoder1m_masks`)
+    supplies the dropout masks drawn ahead."""
     spec = decoder1m_spec(num_2d)
+    pre = f"{path}/" if path else ""
+    kw = dict(train=train, rng=rng, bn_updates=bn_updates, masks=masks)
     cur = mat
     for i, (lb, lp, cb, cp) in enumerate(zip(
         spec["lconvtwos"], params["lconvtwos"], spec["convtwos"],
         params["convtwos"],
     )):
-        lout = apply_block(lp, lb, cur)
+        lout = apply_block(lp, lb, cur, path=f"{pre}lconvtwos/{i}", **kw)
         # the first block maps 128 -> 64 channels: no residual
         cur = lout if i == 0 else lout + cur
-        cur = apply_block(cp, cb, cur) + cur
-    cur = apply_block(params["final"], spec["final"], cur)
+        cur = apply_block(cp, cb, cur, path=f"{pre}convtwos/{i}", **kw) + cur
+    cur = apply_block(params["final"], spec["final"], cur,
+                      path=f"{pre}final", **kw)
     return symmetrize(cur)
 
 
-def apply_decoder1m(params: dict, x: torch.Tensor, *,
-                    num_2d: int = 1) -> torch.Tensor:
+def decoder1m_masks(lead_shape, rng: Optional[int], device, path: str = "",
+                    num_2d: int = 1) -> Dict[str, torch.Tensor]:
+    """Every dropout mask apply_decoder1m_mat draws in training mode for an
+    input of `lead_shape` (N, crop, crop), keyed by unit path."""
+    spec = decoder1m_spec(num_2d)
+    pre = f"{path}/" if path else ""
+    masks = {}
+    for name in ("lconvtwos", "convtwos"):
+        for i, b in enumerate(spec[name]):
+            masks.update(draw_masks(b, lead_shape, rng, device,
+                                    f"{pre}{name}/{i}"))
+    masks.update(draw_masks(spec["final"], lead_shape, rng, device,
+                            f"{pre}final"))
+    return masks
+
+
+def apply_decoder1m(params: dict, x: torch.Tensor, **kwargs) -> torch.Tensor:
     """(N, crop, 128) encoding -> (N, crop, crop, num_2d) map."""
-    return apply_decoder1m_mat(params, pairwise(x), num_2d=num_2d)
+    return apply_decoder1m_mat(params, pairwise(x), **kwargs)
 
 
 # --------------------------------------------------------------------------
@@ -195,20 +273,64 @@ def init_net(gen: torch.Generator, num_1d: Optional[int] = None,
 
 
 def apply_net(params: dict, x: torch.Tensor, *, num_1d: Optional[int] = None,
-              num_2d: int = 1):
-    """1 Mb model forward, inference: (N, L, 4) one-hot (uint8 quarter-scale
-    or float) -> (N, L/4000, L/4000, num_2d) map, and the (N, L/4000, num_1d)
-    tracks when num_1d is set.
+              num_2d: int = 1, train: bool = False, rng: Optional[int] = None,
+              bn_updates: Optional[BNUpdates] = None, remat: bool = False):
+    """1 Mb model forward: (N, L, 4) one-hot (uint8 quarter-scale or float)
+    -> (N, L/4000, L/4000, num_2d) map, and the (N, L/4000, num_1d) tracks
+    when num_1d is set.
 
-    The tower runs as one piece (`encoders.apply_encoder_tower`): on a CUDA
-    tensor through the fused kernels on folded parameters, with the valid
-    range the whole window, which equals the JAX package's unfused stages
-    with zero padding at the window's edges; unfolded parameters raise
-    there."""
-    out7 = encoders.apply_encoder_tower(params["encoder"], x)
-    pred = apply_decoder1m_mat(params["decoder"], pairwise(out7),
-                               num_2d=num_2d)
+    Inference: the tower runs as one piece (`encoders.apply_encoder_tower`):
+    on a CUDA tensor through the fused kernels on folded parameters, with the
+    valid range the whole window, which equals the JAX package's unfused
+    stages with zero padding at the window's edges; unfolded parameters
+    raise there.
+
+    Training (`train=True`, unfolded parameters, float32): the tower's plain
+    stages under autograd, then the 2D stack. remat checkpoints the two
+    segments, the tower and the 2D stack, as the JAX package does; the
+    stack's dropout masks are drawn before its checkpoint.
+    """
+    if not train:
+        out7 = encoders.apply_encoder_tower(params["encoder"], x)
+        pred = apply_decoder1m_mat(params["decoder"], pairwise(out7),
+                                   num_2d=num_2d)
+        if num_1d:
+            return pred, apply_block(params["final_1d"],
+                                     final1d_spec(num_1d), out7)
+        return pred
+
+    x = encoders.to_compute_dtype(
+        x, params["encoder"]["lconv"][0][0]["w"].dtype)
+
+    def run_encoder(x):
+        local = BNUpdates()
+        out = encoders.apply_encoder_stages(params["encoder"], x, train=True,
+                                            rng=rng, bn_updates=local,
+                                            path="encoder")
+        return out, local.updates
+
+    def run_decoder(mat, masks):
+        local = BNUpdates()
+        out = apply_decoder1m_mat(params["decoder"], mat, num_2d=num_2d,
+                                  train=True, rng=rng, bn_updates=local,
+                                  path="decoder", masks=masks)
+        return out, local.updates
+
+    if remat:
+        out7, enc_updates = _recompute(run_encoder, x)
+        mat = pairwise(out7)
+        masks = decoder1m_masks(mat.shape[:-1], rng, mat.device, "decoder",
+                                num_2d)
+        pred, dec_updates = _recompute(run_decoder, mat, masks)
+    else:
+        out7, enc_updates = run_encoder(x)
+        pred, dec_updates = run_decoder(pairwise(out7), None)
+    if bn_updates is not None:
+        bn_updates.updates.update(enc_updates)
+        bn_updates.updates.update(dec_updates)
     if num_1d:
-        return pred, apply_block(params["final_1d"], final1d_spec(num_1d),
-                                 out7)
+        out1d = apply_block(params["final_1d"], final1d_spec(num_1d), out7,
+                            train=True, rng=rng, bn_updates=bn_updates,
+                            path="final_1d")
+        return pred, out1d
     return pred

@@ -17,7 +17,13 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from orca_tpu_torch.nn.core import apply_block, apply_unit, conv_pair_1d, init_block
+from orca_tpu_torch.nn.core import (
+    BNUpdates,
+    apply_block,
+    apply_unit,
+    conv_pair_1d,
+    init_block,
+)
 from orca_tpu_torch.ops import nn_ops
 from orca_tpu_torch.ops.kernels.conv_chain import (
     fused_conv_chain,
@@ -56,16 +62,22 @@ def init_encoder_tower(gen: torch.Generator) -> dict:
             for name, blocks in spec.items()}
 
 
-def apply_encoder_stages(params: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_encoder_stages(params: dict, x: torch.Tensor, *,
+                         train: bool = False, rng: Optional[int] = None,
+                         bn_updates: Optional[BNUpdates] = None,
+                         path: str = "") -> torch.Tensor:
     """The 7 residual stages on (N, L, 4) -> (N, L/4000, 128). Stage i+1
     consumes conv_i(lconv_i(x)) + lconv_i(x); the tower returns the last
-    stage's conv output without the residual."""
+    stage's conv output without the residual. Plain PyTorch ops: the
+    training path of stage a runs here, under autograd."""
     spec = encoder_tower_spec()
+    pre = f"{path}/" if path else ""
+    kw = dict(train=train, rng=rng, bn_updates=bn_updates)
     out = cout = x
-    for lb, lp, cb, cp in zip(spec["lconv"], params["lconv"], spec["conv"],
-                              params["conv"]):
-        lout = apply_block(lp, lb, out)
-        cout = apply_block(cp, cb, lout)
+    for i, (lb, lp, cb, cp) in enumerate(zip(spec["lconv"], params["lconv"],
+                                             spec["conv"], params["conv"])):
+        lout = apply_block(lp, lb, out, path=f"{pre}lconv/{i}", **kw)
+        cout = apply_block(cp, cb, lout, path=f"{pre}conv/{i}", **kw)
         out = cout + lout
     return cout
 
@@ -198,10 +210,14 @@ def _default_blocking(n: int, length: int,
     return block_bp, block_group or max(1, 8_000_000 // block_bp)
 
 
-def fused_group_count(n: int, length: int) -> int:
+def fused_group_count(n: int, length: int,
+                      block_bp: Optional[int] = None) -> int:
     """How many times `apply_encoder_tower` runs the fused stages (so each
-    fused kernel launches) for an (n, length) input at the default blocking."""
-    block_bp, block_group = _default_blocking(n, length, None)
+    fused kernel launches) for an (n, length) input, at the default blocking
+    or at `block_bp` (the training steps' encoder_block_bp)."""
+    block_group = None
+    if block_bp is None:
+        block_bp, block_group = _default_blocking(n, length, None)
     if block_bp is None or length <= block_bp:
         return 1
     nblocks = -(-length // block_bp)
@@ -330,26 +346,32 @@ def init_pyramid(gen: torch.Generator, levels: int, up_pass: bool) -> dict:
 
 
 def apply_pyramid(params: dict, x: torch.Tensor, *, levels: int,
-                  up_pass: bool) -> List[torch.Tensor]:
+                  up_pass: bool, train: bool = False,
+                  rng: Optional[int] = None,
+                  bn_updates: Optional[BNUpdates] = None,
+                  path: str = "") -> List[torch.Tensor]:
     """Returns `levels + 1` encodings, finest first. With up_pass: U-Net,
     the down pass halves the resolution per level, the up pass doubles it
     back and adds the matching down encoding."""
     spec = pyramid_spec(levels, up_pass)
+    pre = f"{path}/" if path else ""
+    kw = dict(train=train, rng=rng, bn_updates=bn_updates)
     out = x
     encodings = [out]
-    for lb, lp, cb, cp in zip(spec["lblocks"], params["lblocks"],
-                              spec["blocks"], params["blocks"]):
-        lout = apply_block(lp, lb, out)
-        out = apply_block(cp, cb, lout) + lout
+    for i, (lb, lp, cb, cp) in enumerate(zip(spec["lblocks"],
+                                             params["lblocks"],
+                                             spec["blocks"], params["blocks"])):
+        lout = apply_block(lp, lb, out, path=f"{pre}lblocks/{i}", **kw)
+        out = apply_block(cp, cb, lout, path=f"{pre}blocks/{i}", **kw) + lout
         encodings.append(out)
     if not up_pass:
         return encodings
     encodings2 = [out]
-    for enc, lb, lp, cb, cp in zip(reversed(encodings[:-1]), spec["downl"],
-                                   params["downl"], spec["down"],
-                                   params["down"]):
-        lout = apply_block(lp, lb, out)
-        out = apply_block(cp, cb, lout) + lout
+    for i, (enc, lb, lp, cb, cp) in enumerate(zip(
+            reversed(encodings[:-1]), spec["downl"], params["downl"],
+            spec["down"], params["down"])):
+        lout = apply_block(lp, lb, out, path=f"{pre}downl/{i}", **kw)
+        out = apply_block(cp, cb, lout, path=f"{pre}down/{i}", **kw) + lout
         out = enc + out
         encodings2.append(out)
     encodings2.reverse()

@@ -15,7 +15,8 @@ row's [vs, ve) and rounds to the I/O dtype; the output is the last conv plus
 the residual conv, max-pooled by `out_pool` (floor length).
 
 Dispatch: a CUDA tensor launches the kernel (or raises), a CPU tensor takes
-the plain version. Each public function counts its kernel launches in its
+the plain version. The kernels have no backward: a tensor that requires grad
+is refused on the card. Each public function counts its kernel launches in its
 `launches` attribute. bf16 runs on the tensor cores (wgmma) and takes 64, 96
 or 128 channels. fp32 runs on the CUDA cores, by output width: at 64 and 96
 channels (stages 0-1, nearly all the fp32 FLOPs) each conv is one pass of
@@ -193,6 +194,10 @@ def _check_chain(x, convs, vs, ve, relus, io_dtype, cin,
     """Validate a 4-conv chain for the kernel; returns (relu_mask, C)."""
     if len(convs) != 4 or len(relus) != 4:
         raise ValueError("the CUDA kernel runs chains of exactly 4 convs")
+    if any(t.requires_grad for t in (x, *(t for wb in convs for t in wb))):
+        raise ValueError("the CUDA kernel has no backward: pass tensors that "
+                         "do not require grad (frozen weights, under "
+                         "torch.no_grad())")
     c = convs[0][0].shape[-1]
     for k, (w, b) in enumerate(convs):
         want = (9, cin if k == 0 else c, c)

@@ -26,7 +26,9 @@ BN_EPS = 1e-5  # torch BatchNorm default
 @contextlib.contextmanager
 def full_fp32():
     """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls inside the
-    block, restoring the caller's settings after it."""
+    block, restoring the caller's settings after it. A training step runs
+    its forward and its backward inside one such block, so the backward's
+    convolutions run without TF32 too."""
     cudnn, matmul = (torch.backends.cudnn.allow_tf32,
                      torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
@@ -93,6 +95,33 @@ def batchnorm(x, scale, bias, mean, var, eps: float = BN_EPS):
     return x * inv + (bias - mean * inv)
 
 
+def batchnorm_train(x: torch.Tensor, scale, bias, eps: float = BN_EPS):
+    """Training-mode BatchNorm over all axes but the last.
+
+    Returns (y, batch_mean, batch_var_biased, batch_var_unbiased): y is
+    normalised with the biased variance (torch semantics), the caller updates
+    the running statistics with the unbiased one. The variance takes two
+    passes, E[(x - mean)^2], as the JAX package does: E[x^2] - E[x]^2 cancels
+    catastrophically where |mean| >> std."""
+    dims = tuple(range(x.dim() - 1))
+    mean = x.mean(dim=dims)
+    var = (x - mean).square().mean(dim=dims)
+    n = x.numel() // x.shape[-1]
+    var_unbiased = var * (n / max(n - 1, 1))
+    inv = torch.rsqrt(var + eps) * scale
+    y = x * inv + (bias - mean * inv)
+    return y, mean, var, var_unbiased
+
+
+def dropout(x: torch.Tensor, rate: float,
+            mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Inverted dropout with a drawn keep mask (utils.rng.bernoulli of
+    1 - rate); identity when mask is None (inference)."""
+    if mask is None or rate == 0.0:
+        return x
+    return torch.where(mask, x / (1.0 - rate), 0.0)
+
+
 def relu(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0)
 
@@ -102,13 +131,18 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
 
 
 def upsample1d_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
-    """(N, L, C) -> (N, L*scale, C), duplicating (torch Upsample 'nearest')."""
-    return x.repeat_interleave(scale, dim=1)
+    """(N, L, C) -> (N, L*scale, C), duplicating (torch Upsample 'nearest').
+    A broadcast, whose backward is a sum (deterministic on the card)."""
+    n, length, c = x.shape
+    return x[:, :, None].expand(n, length, scale, c).reshape(
+        n, length * scale, c)
 
 
 def upsample2d_nearest(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
-    """(N, H, W, C) -> (N, H*s, W*s, C), duplicating."""
-    return x.repeat_interleave(scale, dim=1).repeat_interleave(scale, dim=2)
+    """(N, H, W, C) -> (N, H*s, W*s, C), duplicating (a broadcast)."""
+    n, h, w, c = x.shape
+    return x[:, :, None, :, None].expand(n, h, scale, w, scale, c).reshape(
+        n, h * scale, w * scale, c)
 
 
 def upsample2d_bilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

@@ -463,7 +463,7 @@ def test_convert_equal(statedict_dirs, family, name, tmp_path, capsys):
 @pytest.mark.parametrize("argv,item", [
     (["region", "chr1:1-2", "out", "--cpu", "--seq-shards", "2"], "A16"),
     (["certify", "/ref", "--synthetic"], "A17"),
-    (["train", "a", "--config", "job.json"], "A15"),
+    (["train", "a", "--config", "job.json", "--mesh", "data=2"], "A16"),
     (["bench"], "A14"),
 ])
 def test_unported_paths_name_their_roadmap_item(argv, item, capsys):

@@ -200,6 +200,16 @@ GPU_CASES = [
     ("chain", 128, 128, 5, 2_500, ([0, 0], [2_500] * 2), 1),
     ("chain", 128, 128, 2, 500, ([0, 0], [500] * 2), 1),
     ("chain", 128, 128, 1, 250, ([0, 0], [250] * 2), -1),
+    # the training steps' frozen tower: one 1.024 Mb piece (an 800 kb block
+    # and its 112 kb halos) per row, row 0 the window's first block, whose
+    # leading halo lies outside the sequence; stages 0-6
+    ("first", 4, 64, 4, 1_024_000, ([112_000, 0], [1_024_000] * 2), "u8"),
+    ("chain", 64, 96, 4, 256_000, ([28_000, 0], [256_000] * 2), 1),
+    ("chain", 96, 128, 5, 64_000, ([7_000, 0], [64_000] * 2), 1),
+    ("chain", 128, 128, 5, 12_800, ([1_400, 0], [12_800] * 2), 1),
+    ("chain", 128, 128, 5, 2_560, ([280, 0], [2_560] * 2), 1),
+    ("chain", 128, 128, 2, 512, ([56, 0], [512] * 2), 1),
+    ("chain", 128, 128, 1, 256, ([28, 0], [256] * 2), -1),
 ]
 
 

@@ -41,11 +41,14 @@ def test_no_jax_or_orca_tpu_import_in_source(path):
 
 
 def test_command_line_and_1m_family_are_checked_sources():
-    """The command line, the 1 Mb family and the expectation files module are
-    among the sources held to the rule above."""
+    """The command line, the 1 Mb family, the expectation files module and
+    the training path are among the sources held to the rule above."""
     sources = set(_port_sources())
     for rel in ("cli.py", "predict/onemb.py", "data/expectation.py",
-                "models/convert.py"):
+                "models/convert.py", "training/stages.py", "training/loop.py",
+                "training/launch.py", "training/losses.py",
+                "training/optim.py", "training/swa.py", "utils/rng.py",
+                "utils/logging.py", "data/sampler.py", "data/pipeline.py"):
         assert PORT / rel in sources, rel
 
 
@@ -270,3 +273,34 @@ def test_load_256m_bundle_round_trip(jax_256m_pickle, dtype):
             np.testing.assert_array_equal(
                 a.float().numpy(),
                 torch.tensor(b).to(getattr(torch, dtype)).float().numpy())
+
+
+def test_training_entry_points_need_cuda_unless_told_cpu(tmp_path):
+    """launch.run, the stage trainers and the stage steps' makers take
+    device=None as CUDA and raise without it; device='cpu' runs there."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    import numpy as np
+
+    from orca_tpu_torch.training import launch, loop, stages
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.run(launch.TrainJob(stage="a", workdir=str(tmp_path)))
+    for make in (stages.make_stage_a_step, stages.make_stage_b_step,
+                 stages.make_stage_b_eval, stages.make_stage_c_step,
+                 stages.make_stage_c_eval):
+        cfg = (stages.StageAConfig() if make is stages.make_stage_a_step
+               else stages.StageBConfig() if "_b_" in make.__name__
+               else stages.StageCConfig())
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(cfg)
+        assert make(cfg, device="cpu") is not None
+    lc = loop.LoopConfig(workdir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.StageATrainer(stages.StageAConfig(), lc, None,
+                           np.ones((250, 250)), 0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.StageBTrainer(stages.StageBConfig(), lc, None, {}, {},
+                           np.ones((6, 250, 250)), np.ones(6))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        loop.StageCTrainer(stages.StageCConfig(), lc, None, {}, {})
