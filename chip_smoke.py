@@ -92,27 +92,32 @@ Phases (any failure exits non-zero before the final line):
      plain versions and timed (`stage1024kb` lines, `kernels1024kb`); one
      stage-b step at CascadeGeometry(1_024_000, 4000, 8), levels (32, 1),
      with pinned draws on the card against the CPU plain path: in float32
-     the loss and BatchNorm updates (the momentum tree printed), in float64
-     on shared tower features the loss, BatchNorm updates, momentum tree
-     and params, within 1e-4 * max(1, max|ref|); then per stage a synthetic
+     the loss and BatchNorm updates within 1e-4 * max(1, max|ref|), and
+     the card's momentum tree within twice the CPU float32 step's distance
+     to a float64 CPU step (a control with TF32 allowed must miss that);
+     in float64 on shared tower features the loss, BatchNorm updates,
+     momentum tree and params within 1e-4 * max(1, max|ref|); then per stage a synthetic
      genome through `build-genome`, a dense store of smooth balanced maps,
      expectations (and a 32-track BED for stage a) in a temporary `_smoke_*`
      dir, and `cli.main(["train", ...])` at full width and geometry (a: the
      1 Mb Net, batch 4, SWA; b: 32 Mb, six levels, 4 windows a step, from
      a's run; c: 256 Mb, four levels, from a's and b's runs): 3 steps
      straight, then 1 step and a resumed run to step 3 in another workdir,
-     with cuDNN deterministic. Checked: losses finite, the trainable params
-     moved and the frozen ones bit-equal, launches a step and a validation
-     equal to the group plan's (a: 0 a step), the resumed losses within
-     1e-5 of the straight run's. One `training <stage>` line each: seconds a
-     step (first and rest), its frozen tower and trainable parts, host
-     sampling, validate, save, restore, peak device memory, launches;
+     as the command line runs them (the steps select cuDNN's deterministic
+     algorithms). Checked: losses finite, the trainable params moved and
+     the frozen ones bit-equal, launches a step and a validation equal to
+     the group plan's (a: 0 a step), step 1 equal in two runs, the resumed
+     losses within 1e-5 relative of the straight run's. One `training
+     <stage>` line each: seconds a step (first and rest), its frozen tower
+     and trainable parts, host sampling, validate, save, restore, peak
+     device memory, launches;
  11. one JSON line with every kernel (its launches summed over every request
      of phases 4-9 and the training phase), then the device line.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -803,7 +808,6 @@ def serve_phase(torch, cc, zoo):
     prediction modes, a malformed line and `quit`; each command's launch
     counts set to 0 just before it and read just after. Returns the
     launches summed over the commands."""
-    import contextlib
     import io
     import pickle
     import tempfile
@@ -1159,7 +1163,6 @@ def checkpoints_phase(torch, cc, zoo, seq):
     before each request and read just after), leukemiaB held to the CPU on
     a small window, and the command line's `convert`. Returns {dtype:
     launches}."""
-    import contextlib
     import io
     import tempfile
 
@@ -1378,7 +1381,6 @@ def write_training_resources(torch, cli, tmp):
     """Per stage: a FASTA through `build-genome`, a dense store of smooth
     balanced maps (.npz), expectations; stage a also a 32-track BED. Returns
     {stage: job fields}."""
-    import contextlib
     import io
 
     jobs = {}
@@ -1608,16 +1610,15 @@ def train_stage(torch, cli, probe, stage, job, tmp, runs):
                   f"{[round(v[0], 3) for v in other['restore']]} s, steps "
                   f"{sorted(losses[run])}, run {wall:.1f} s, peak device "
                   f"memory {peak:.2f} GiB", flush=True)
-    d = max(abs(losses["resumed"][k] - losses["straight"][k])
-            / max(1e-30, abs(losses["straight"][k]))
-            for k in losses["resumed"])
     check(set(losses["resumed"]) == {2, 3}, f"{stage}: resumed steps "
           f"{sorted(losses['resumed'])}")
     check(losses["first"][1] == losses["straight"][1],
           f"{stage}: step 1 differs between two runs")
+    d = max(abs(losses["resumed"][k] - losses["straight"][k])
+            / max(1e-30, abs(losses["straight"][k]))
+            for k in losses["resumed"])
     print(f"training {stage} resume: steps 2-3 resumed vs straight, max "
-          f"relative loss difference {d:.3e} (deterministic cuDNN)",
-          flush=True)
+          f"relative loss difference {d:.3e}", flush=True)
     check(d <= 1e-5, f"{stage}: resumed losses differ by {d}")
     return total
 
@@ -1670,13 +1671,62 @@ def _tree_err(torch, want, got, select=lambda path: True, path=""):
             / max(1.0, w.abs().max().item())).item()
 
 
+class Tf32Allowed:
+    """The training steps with TF32 allowed for cuDNN and cuBLAS, in place
+    of `nn_ops.full_fp32` (which also selects deterministic algorithms): a
+    control that the float32 check below sees a backward left in TF32."""
+
+    def __init__(self, torch):
+        from orca_tpu_torch.ops import nn_ops
+
+        self.nn_ops, self.b = nn_ops, torch.backends
+
+    def __enter__(self):
+        self.saved = (self.nn_ops.full_fp32, self.b.cudnn.allow_tf32,
+                      self.b.cuda.matmul.allow_tf32)
+        self.nn_ops.full_fp32 = contextlib.nullcontext
+        self.b.cudnn.allow_tf32 = self.b.cuda.matmul.allow_tf32 = True
+        return self
+
+    def __exit__(self, *exc):
+        (self.nn_ops.full_fp32, self.b.cudnn.allow_tf32,
+         self.b.cuda.matmul.allow_tf32) = self.saved
+
+
+def _tree_rel_l2(torch, want, got):
+    """||got - want|| / ||want|| over every leaf of two trees of one
+    structure."""
+    from orca_tpu_torch.utils.tree import tree_leaves
+
+    num = den = 0.0
+    for w, g in zip(tree_leaves(want), tree_leaves(got)):
+        w = w.detach().double().cpu()
+        num += (g.detach().double().cpu() - w).square().sum().item()
+        den += w.square().sum().item()
+    return (num / den) ** 0.5
+
+
+# The card's float32 momentum may lie at most this many times as far from a
+# float64 step as the CPU's float32 momentum does (relative L2 over the
+# tree). A float32 step's gradient at 1.024 Mb is ill-conditioned: the
+# CPU's float32 step lies 7.0e-3 from the float64 one, the card's 1.1e-2,
+# the card's with TF32 allowed 3.3e-1 (probe on an H100 80GB HBM3, 700 W).
+TRAIN_F32_MOMENTUM_FACTOR = 3.0
+
+
 def training_card_vs_cpu(torch):
     """One stage-b step at CascadeGeometry(1_024_000, 4000, 8), levels
-    (32, 1), pinned draws, on the card and on the CPU plain path: float32 as
-    the trainers run it (the frozen tower through the kernels on the card),
-    loss and BatchNorm updates checked; then float64 on the same tower
-    features, loss, BatchNorm updates and momentum tree checked (a float32
-    step's gradient is too ill-conditioned at this size to compare)."""
+    (32, 1), pinned draws. Float32 as the trainers run it, on the card (the
+    frozen tower through the kernels, TF32 off) and on the CPU plain path,
+    and float64 on the CPU as the reference. Checked: the card's loss and
+    BatchNorm updates within 1e-4 * max(1, max|ref|) of the CPU float32
+    step's; the card's momentum tree no further from the float64 step's
+    (relative L2 over the tree) than TRAIN_F32_MOMENTUM_FACTOR times the
+    CPU float32 step's own distance to it (a float32 step's gradient is too
+    ill-conditioned here to ask 1e-4 of it). A control: the card's step with
+    TF32 allowed must miss that limit. Then float64 on the
+    same tower features on the card and the CPU: loss, BatchNorm updates,
+    momentum tree and params within 1e-4 * max(1, max|ref|)."""
     from orca_tpu_torch.models import zoo
     from orca_tpu_torch.nn import decoders, encoders
     from orca_tpu_torch.nn.core import fold_params
@@ -1708,44 +1758,60 @@ def training_card_vs_cpu(torch):
     threads = torch.get_num_threads()
     torch.set_num_threads(len(os.sched_getaffinity(0)))
 
-    def both(dtype, encoder_fn=None):
-        out = {}
-        for dev in ("cpu", "cuda"):
-            def to(tree):
-                return tree_map(lambda t: t.to(dev, dtype)
-                                if t.is_floating_point() else t.to(dev), tree)
-            feats_fn = None if encoder_fn is None else (
-                lambda p, s, dev=dev: encoder_fn.to(dev, dtype))
-            opt, step = stages.make_stage_b_step(cfg, encoder_fn=feats_fn,
-                                                 device=dev)
-            tr, fr = to(trainable), to(frozen)
-            with PinnedDraws(torch):
-                out[dev] = step(tr, fr, opt.init(tr), seq.to(dev),
-                                target.to(dev, dtype), 123, 0.002,
-                                nm.to(dev, dtype), ep.to(dev, dtype))
-        return out
+    def run(dev, dtype, feats=None, tf32=False):
+        def to(tree):
+            return tree_map(lambda t: t.to(dev, dtype)
+                            if t.is_floating_point() else t.to(dev), tree)
+        feats_fn = None if feats is None else (
+            lambda p, s: feats.to(dev, dtype))
+        opt, step = stages.make_stage_b_step(cfg, encoder_fn=feats_fn,
+                                             device=dev)
+        tr, fr = to(trainable), to(frozen)
+        with PinnedDraws(torch), (Tf32Allowed(torch) if tf32
+                                  else contextlib.nullcontext()):
+            return step(tr, fr, opt.init(tr), seq.to(dev),
+                        target.to(dev, dtype), 123, 0.002,
+                        nm.to(dev, dtype), ep.to(dev, dtype))
+
+    def loss_err(want, got):
+        return abs(float(got["loss"]) - float(want["loss"])) / max(
+            1.0, abs(float(want["loss"])))
+
+    def is_bn(path):
+        return path.endswith(("/mean", "/var"))
 
     t0 = time.perf_counter()
-    f32 = both(torch.float32)
-    (tc, sc, mc), (tg, sg, mg) = f32["cpu"], f32["cuda"]
-    loss_d = abs(float(mg["loss"]) - float(mc["loss"])) / max(
-        1.0, abs(float(mc["loss"])))
-    bn_d = _tree_err(torch, tc, tg, lambda p: p.endswith(("/mean", "/var")))
-    mom32 = _tree_err(torch, sc["trace"], sg["trace"])
-    print(f"training card vs CPU, stage-b step float32 at 1.024 Mb, levels "
-          f"(32, 1): loss {float(mg['loss']):.6f} vs {float(mc['loss']):.6f} "
-          f"(|d| {loss_d:.3e} of max(1, |loss|)), BatchNorm updates "
-          f"{bn_d:.3e}, momentum tree {mom32:.3e} (not checked in float32)",
-          flush=True)
+    ref = run("cpu", torch.float64)
+    cpu = run("cpu", torch.float32)
+    got = run("cuda", torch.float32)
+    tf32 = run("cuda", torch.float32, tf32=True)
+    loss_d = loss_err(cpu[2], got[2])
+    bn_d = _tree_err(torch, cpu[0], got[0], is_bn)
+    mom = {name: (_tree_rel_l2(torch, ref[1]["trace"], out[1]["trace"]),
+                  _tree_err(torch, ref[1]["trace"], out[1]["trace"]))
+           for name, out in (("cpu", cpu), ("card", got), ("tf32", tf32))}
+    limit = TRAIN_F32_MOMENTUM_FACTOR * mom["cpu"][0]
+    print(f"training card vs CPU, stage-b step float32 at "
+          f"{geom.window_bp / 1e6:g} Mb, levels {levels}: loss "
+          f"{float(got[2]['loss']):.6f} vs {float(cpu[2]['loss']):.6f} (|d| "
+          f"{loss_d:.3e} of max(1, |loss|)), BatchNorm updates {bn_d:.3e}; "
+          f"momentum tree against the float64 step's, relative L2 (max per "
+          f"leaf of max(1, max|ref|)): card {mom['card'][0]:.3e} "
+          f"({mom['card'][1]:.3e}), CPU float32 {mom['cpu'][0]:.3e} "
+          f"({mom['cpu'][1]:.3e}), limit {limit:.3e}; card with TF32 allowed "
+          f"{mom['tf32'][0]:.3e} ({mom['tf32'][1]:.3e})", flush=True)
     check(loss_d <= 1e-4 and bn_d <= 1e-4,
           f"float32 step card vs CPU: loss {loss_d}, BN {bn_d}")
+    check(mom["card"][0] <= limit, f"float32 step on the card: momentum "
+          f"{mom['card'][0]} from the float64 step's, over the limit {limit}")
+    check(mom["tf32"][0] > limit, f"the TF32 control is within the float32 "
+          f"momentum limit ({mom['tf32'][0]} <= {limit}): it sees no TF32")
     with torch.no_grad():
         feats = encoders.apply_encoder_tower(frozen["encoder"], seq)
-    f64 = both(torch.float64, feats)
-    (tc, sc, mc), (tg, sg, mg) = f64["cpu"], f64["cuda"]
-    loss_d = abs(float(mg["loss"]) - float(mc["loss"])) / max(
-        1.0, abs(float(mc["loss"])))
-    bn_d = _tree_err(torch, tc, tg, lambda p: p.endswith(("/mean", "/var")))
+    (tc, sc, mc) = run("cpu", torch.float64, feats)
+    (tg, sg, mg) = run("cuda", torch.float64, feats)
+    loss_d = loss_err(mc, mg)
+    bn_d = _tree_err(torch, tc, tg, is_bn)
     mom = _tree_err(torch, sc["trace"], sg["trace"])
     params_d = _tree_err(torch, tc, tg)
     torch.set_num_threads(threads)
@@ -1764,10 +1830,10 @@ def training_phase(torch, cc, peaks, sms):
     `cli.main(["train", ...])` at full width and geometry (a: the 1 Mb Net,
     batch 4, SWA; b: 32 Mb, all six levels, 4 windows a step, from a's run;
     c: 256 Mb, all four levels, from a's and b's runs): 3 steps straight,
-    then 1 step and a resumed run to step 3, with cuDNN deterministic (the
-    resume check compares losses). Before them, both kernels at the 1.024 Mb
-    piece shape and one stage-b step on the card against the CPU. Returns
-    the fp32 launches of the phase (kernel checks aside)."""
+    then 1 step and a resumed run to step 3, all as the command line runs
+    them. Before them, both kernels at the
+    1.024 Mb piece shape and one stage-b step on the card against the CPU.
+    Returns the fp32 launches of the phase (kernel checks aside)."""
     import tempfile
 
     from orca_tpu_torch import cli
@@ -1783,8 +1849,6 @@ def training_phase(torch, cc, peaks, sms):
         v, float) and n != "max_abs_err" else v for n, v in t.items()}
         for k, t in rows.items()}), flush=True)
     training_card_vs_cpu(torch)
-    cudnn = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
     probe = TrainProbe(torch, cc)
     total = [0, 0]
     try:
@@ -1810,7 +1874,6 @@ def training_phase(torch, cc, peaks, sms):
                 total[1] += got[1]
     finally:
         probe.remove()
-        torch.backends.cudnn.deterministic = cudnn
     return {"fused_first_stage": total[0], "fused_conv_chain": total[1]}
 
 

@@ -292,7 +292,7 @@ def _train(args, parser) -> int:
     with the flags as overrides, then `training.launch.run`."""
     import torch
 
-    from orca_tpu_torch.training.launch import TrainJob, run
+    from orca_tpu_torch.training.launch import TrainJob, build_mesh, run
 
     if args.mesh:
         parser.error("--mesh trains across several devices, which is not "
@@ -308,9 +308,10 @@ def _train(args, parser) -> int:
         num_workers=args.workers,
         seed=args.seed,
     )
-    if job.mesh or job.multihost:
-        parser.error(f"{args.config} asks for a device mesh or several hosts,"
-                     " which is not ported yet (ROADMAP A16)")
+    try:
+        build_mesh(job)
+    except NotImplementedError as e:
+        parser.error(f"{args.config}: {e}")
     if args.no_resume:
         job.resume = False
     metrics = run(job)

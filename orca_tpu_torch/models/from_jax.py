@@ -24,6 +24,7 @@ from orca_tpu_torch.models.zoo import (
     cast_bundle,
 )
 from orca_tpu_torch.utils.config import get_config, resolve_device
+from orca_tpu_torch.utils.tree import tree_map
 
 # the JAX package's bundle classes the pickle loader maps onto the port's
 _JAX_BUNDLES = {
@@ -37,17 +38,17 @@ def params_from_numpy(tree, device=None, dtype: Optional[torch.dtype] = None):
     """Nested dict/list/tuple of numpy arrays -> the same nesting of tensors
     on `device` (None = CUDA), cast to `dtype` when given."""
     device = resolve_device(device)
-    if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [params_from_numpy(v, device, dtype) for v in tree]
-    arr = np.asarray(tree)
-    if arr.dtype.kind != "f" or arr.dtype.itemsize not in (4, 8):
-        raise ValueError(
-            f"unsupported parameter dtype {arr.dtype}: carry float32 arrays "
-            "across and cast with torch"
-        )
-    return torch.tensor(arr, device=device, dtype=dtype or torch.float32)
+
+    def leaf(a):
+        arr = np.asarray(a)
+        if arr.dtype.kind != "f" or arr.dtype.itemsize not in (4, 8):
+            raise ValueError(
+                f"unsupported parameter dtype {arr.dtype}: carry float32 "
+                "arrays across and cast with torch"
+            )
+        return torch.tensor(arr, device=device, dtype=dtype or torch.float32)
+
+    return tree_map(leaf, tree)
 
 
 def opt_state_from_numpy(state, device=None,

@@ -19,6 +19,7 @@ from orca_tpu_torch.models import convert
 from orca_tpu_torch.nn import decoders, encoders
 from orca_tpu_torch.nn.core import fold_params
 from orca_tpu_torch.utils.config import resolve_device
+from orca_tpu_torch.utils.tree import tree_map
 
 LEVELS_32M = (1, 2, 4, 8, 16, 32)
 LEVELS_256M = (32, 64, 128, 256)
@@ -124,13 +125,9 @@ def _random_normmats(levels=LEVELS_32M, nbins: int = 8000, crop: int = 250):
 
 
 def _map_tensors(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map_tensors(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tensors(v, fn) for v in tree)
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    return tree
+    """`fn` on every tensor leaf; other leaves (None, numpy) as they are."""
+    return tree_map(lambda t: fn(t) if isinstance(t, torch.Tensor) else t,
+                    tree)
 
 
 def _map_params(bundle, fn):

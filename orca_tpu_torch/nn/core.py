@@ -17,7 +17,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
@@ -144,41 +144,17 @@ def merge_bn_updates(params, bn_updates: BNUpdates):
     return out
 
 
-def _unit_path(path: str, i: int) -> str:
-    return f"{path}/{i}" if path else str(i)
-
-
-def draw_masks(block: Block, lead_shape, rng: Optional[int], device,
-               path: str = "") -> Dict[str, torch.Tensor]:
-    """The dropout keep-masks of a block's units in training mode, keyed by
-    unit path: unit i draws from the i-th key of split(rng), as apply_block
-    hands them out. `lead_shape` is the block input's shape without its
-    channels, after the block's pool or upsample (the convs keep it)."""
-    masks = {}
-    if not any(u.dropout > 0 for u in block.units):
-        return masks
-    if rng is None:
-        raise ValueError("dropout in train mode requires an rng")
-    keys = rng_lib.split(rng, len(block.units))
-    for i, (u, k) in enumerate(zip(block.units, keys)):
-        if u.dropout > 0:
-            masks[_unit_path(path, i)] = rng_lib.bernoulli(
-                k, 1.0 - u.dropout, (*lead_shape, u.cin), device)
-    return masks
-
-
 def apply_unit(params: dict, unit: Unit, x: torch.Tensor, *,
                train: bool = False, rng: Optional[int] = None,
-               bn_updates: Optional[BNUpdates] = None, path: str = "",
-               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+               bn_updates: Optional[BNUpdates] = None, path: str = ""
+               ) -> torch.Tensor:
     """dropout (train) -> conv -> BN -> ReLU/sigmoid. In training mode the
-    dropout mask is `mask` when given, else drawn from `rng`."""
+    dropout mask is drawn from `rng`: a pure function of the key, so a
+    forward recomputed under torch.utils.checkpoint draws it again equal."""
     if unit.dropout > 0.0 and train:
-        if mask is None:
-            if rng is None:
-                raise ValueError("dropout in train mode requires an rng")
-            mask = rng_lib.bernoulli(rng, 1.0 - unit.dropout, x.shape,
-                                     x.device)
+        if rng is None:
+            raise ValueError("dropout in train mode requires an rng")
+        mask = rng_lib.bernoulli(rng, 1.0 - unit.dropout, x.shape, x.device)
         x = nn_ops.dropout(x, unit.dropout, mask)
     conv = nn_ops.conv1d if unit.dim == 1 else nn_ops.conv2d
     x = conv(x, params["w"], params["b"], dilation=unit.dilation)
@@ -206,12 +182,10 @@ def apply_unit(params: dict, unit: Unit, x: torch.Tensor, *,
 
 def apply_block(params: list, block: Block, x: torch.Tensor, *,
                 train: bool = False, rng: Optional[int] = None,
-                bn_updates: Optional[BNUpdates] = None, path: str = "",
-                masks: Optional[Dict[str, torch.Tensor]] = None
+                bn_updates: Optional[BNUpdates] = None, path: str = ""
                 ) -> torch.Tensor:
     """Pool/upsample, then the units. Unit i takes the i-th key of
-    split(rng) and the path "<path>/<i>"; `masks` (from draw_masks) supplies
-    dropout masks drawn ahead, as a checkpointed block needs."""
+    split(rng) and the path "<path>/<i>"."""
     if block.pool:
         x = nn_ops.maxpool1d(x, block.pool)
     if block.upsample:
@@ -222,14 +196,11 @@ def apply_block(params: list, block: Block, x: torch.Tensor, *,
                 x = nn_ops.upsample2d_nearest(x, block.upsample)
         else:
             x = nn_ops.upsample1d_nearest(x, block.upsample)
-    if train and masks is None:
-        masks = draw_masks(block, x.shape[:-1], rng, x.device, path)
     keys = (rng_lib.split(rng, len(block.units)) if rng is not None
             else [None] * len(block.units))
     for i, (p, u, k) in enumerate(zip(params, block.units, keys)):
-        upath = _unit_path(path, i)
         x = apply_unit(p, u, x, train=train, rng=k, bn_updates=bn_updates,
-                       path=upath, mask=(masks or {}).get(upath))
+                       path=f"{path}/{i}" if path else str(i))
     return x
 
 

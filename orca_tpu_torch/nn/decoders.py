@@ -12,13 +12,14 @@ convolutions in the channels-last memory format.
 
 Training mode (`train=True`) runs the same blocks with dropout, batch
 statistics and recorded BatchNorm updates (nn.core); `remat_blocks` and
-`remat` recompute activations in the backward (`torch.utils.checkpoint`),
-with every dropout mask drawn before the checkpoint and passed in.
+`remat` recompute activations in the backward (`torch.utils.checkpoint`);
+a dropout mask is a pure function of its key (utils.rng), so the recompute
+draws it again equal.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -30,7 +31,6 @@ from orca_tpu_torch.nn.core import (
     Unit,
     apply_block,
     conv_pair_2d,
-    draw_masks,
     init_block,
 )
 from orca_tpu_torch.ops import nn_ops
@@ -103,7 +103,8 @@ def symmetrize(m: torch.Tensor) -> torch.Tensor:
 
 def _recompute(fn, *args):
     """fn(*args) with its activations recomputed in the backward. The
-    default generators' states are not saved: no draw happens inside."""
+    default generators' states are not saved: the draws inside come from
+    generators seeded by their keys."""
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
 
 
@@ -121,8 +122,7 @@ def apply_decoder(params: dict, x: torch.Tensor, distenc: torch.Tensor,
 
     Training: every block takes the same `rng`, as in the JAX package, so
     same-shaped dropout units draw the same mask. remat_blocks checkpoints
-    each block, keeping only its input for the backward; its masks are drawn
-    before the checkpoint.
+    each block, keeping only its input for the backward.
     """
     spec = decoder_spec(num_2d)
     pre = f"{path}/" if path else ""
@@ -130,15 +130,13 @@ def apply_decoder(params: dict, x: torch.Tensor, distenc: torch.Tensor,
 
     if train and remat_blocks:
         def block(p, b, cur, bpath):
-            masks = draw_masks(b, cur.shape[:-1], rng, cur.device, bpath)
-
-            def f(cur, masks):
+            def f(cur):
                 local = BNUpdates()
                 out = apply_block(p, b, cur, train=True, rng=rng,
-                                  bn_updates=local, path=bpath, masks=masks)
+                                  bn_updates=local, path=bpath)
                 return out, local.updates
 
-            out, upd = _recompute(f, cur, masks)
+            out, upd = _recompute(f, cur)
             if bn_updates is not None:
                 bn_updates.updates.update(upd)
             return out
@@ -194,15 +192,12 @@ def apply_decoder1m_mat(params: dict, mat: torch.Tensor, *,
                         num_2d: int = 1, train: bool = False,
                         rng: Optional[int] = None,
                         bn_updates: Optional[BNUpdates] = None,
-                        path: str = "",
-                        masks: Optional[Dict[str, torch.Tensor]] = None
-                        ) -> torch.Tensor:
+                        path: str = "") -> torch.Tensor:
     """2D stack over an already-built pairwise map (N, crop, crop, 128).
-    Every block takes the same `rng`; `masks` (from `decoder1m_masks`)
-    supplies the dropout masks drawn ahead."""
+    Every block takes the same `rng`."""
     spec = decoder1m_spec(num_2d)
     pre = f"{path}/" if path else ""
-    kw = dict(train=train, rng=rng, bn_updates=bn_updates, masks=masks)
+    kw = dict(train=train, rng=rng, bn_updates=bn_updates)
     cur = mat
     for i, (lb, lp, cb, cp) in enumerate(zip(
         spec["lconvtwos"], params["lconvtwos"], spec["convtwos"],
@@ -215,22 +210,6 @@ def apply_decoder1m_mat(params: dict, mat: torch.Tensor, *,
     cur = apply_block(params["final"], spec["final"], cur,
                       path=f"{pre}final", **kw)
     return symmetrize(cur)
-
-
-def decoder1m_masks(lead_shape, rng: Optional[int], device, path: str = "",
-                    num_2d: int = 1) -> Dict[str, torch.Tensor]:
-    """Every dropout mask apply_decoder1m_mat draws in training mode for an
-    input of `lead_shape` (N, crop, crop), keyed by unit path."""
-    spec = decoder1m_spec(num_2d)
-    pre = f"{path}/" if path else ""
-    masks = {}
-    for name in ("lconvtwos", "convtwos"):
-        for i, b in enumerate(spec[name]):
-            masks.update(draw_masks(b, lead_shape, rng, device,
-                                    f"{pre}{name}/{i}"))
-    masks.update(draw_masks(spec["final"], lead_shape, rng, device,
-                            f"{pre}final"))
-    return masks
 
 
 def apply_decoder1m(params: dict, x: torch.Tensor, **kwargs) -> torch.Tensor:
@@ -287,8 +266,7 @@ def apply_net(params: dict, x: torch.Tensor, *, num_1d: Optional[int] = None,
 
     Training (`train=True`, unfolded parameters, float32): the tower's plain
     stages under autograd, then the 2D stack. remat checkpoints the two
-    segments, the tower and the 2D stack, as the JAX package does; the
-    stack's dropout masks are drawn before its checkpoint.
+    segments, the tower and the 2D stack, as the JAX package does.
     """
     if not train:
         out7 = encoders.apply_encoder_tower(params["encoder"], x)
@@ -309,22 +287,19 @@ def apply_net(params: dict, x: torch.Tensor, *, num_1d: Optional[int] = None,
                                             path="encoder")
         return out, local.updates
 
-    def run_decoder(mat, masks):
+    def run_decoder(mat):
         local = BNUpdates()
         out = apply_decoder1m_mat(params["decoder"], mat, num_2d=num_2d,
                                   train=True, rng=rng, bn_updates=local,
-                                  path="decoder", masks=masks)
+                                  path="decoder")
         return out, local.updates
 
     if remat:
         out7, enc_updates = _recompute(run_encoder, x)
-        mat = pairwise(out7)
-        masks = decoder1m_masks(mat.shape[:-1], rng, mat.device, "decoder",
-                                num_2d)
-        pred, dec_updates = _recompute(run_decoder, mat, masks)
+        pred, dec_updates = _recompute(run_decoder, pairwise(out7))
     else:
         out7, enc_updates = run_encoder(x)
-        pred, dec_updates = run_decoder(pairwise(out7), None)
+        pred, dec_updates = run_decoder(pairwise(out7))
     if bn_updates is not None:
         bn_updates.updates.update(enc_updates)
         bn_updates.updates.update(dec_updates)

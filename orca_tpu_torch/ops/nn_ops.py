@@ -26,18 +26,22 @@ BN_EPS = 1e-5  # torch BatchNorm default
 @contextlib.contextmanager
 def full_fp32():
     """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls inside the
-    block, restoring the caller's settings after it. A training step runs
-    its forward and its backward inside one such block, so the backward's
-    convolutions run without TF32 too."""
-    cudnn, matmul = (torch.backends.cudnn.allow_tf32,
-                     torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    block, and select cuDNN's deterministic algorithms, restoring the
+    caller's settings after it. A training step runs its forward and its
+    backward inside one such block, so the backward's convolutions run
+    without TF32 too, and a resumed run replays an unkilled one's losses on
+    the card as on the CPU (cuDNN's default backward algorithms are not
+    bitwise deterministic)."""
+    b = torch.backends
+    saved = (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+             b.cudnn.deterministic)
+    b.cudnn.allow_tf32 = b.cuda.matmul.allow_tf32 = False
+    b.cudnn.deterministic = True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn
-        torch.backends.cuda.matmul.allow_tf32 = matmul
+        (b.cudnn.allow_tf32, b.cuda.matmul.allow_tf32,
+         b.cudnn.deterministic) = saved
 
 
 def _result_dtype(*ts) -> torch.dtype:

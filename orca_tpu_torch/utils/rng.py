@@ -11,9 +11,8 @@ draws are a pure function of its key, as they are in JAX:
 Threefry draws cannot be matched bit for bit, so the same key gives other
 values than JAX's; tests that compare the two packages pin both sides' draws
 to the same values. A mask is drawn from a fresh `torch.Generator` seeded
-from its key, so a recomputed forward (`torch.utils.checkpoint`) would draw
-the same mask again; the checkpointed blocks still take their masks drawn
-before the checkpoint, as arguments.
+from its key, never from a generator shared across draws, so a forward
+recomputed under `torch.utils.checkpoint` draws the same mask again.
 """
 
 from __future__ import annotations

@@ -127,9 +127,12 @@ def test_fold_bn_into_conv():
 
 def test_full_fp32_restores_tf32_flags():
     before = (torch.backends.cudnn.allow_tf32,
-              torch.backends.cuda.matmul.allow_tf32)
+              torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.deterministic)
     with tops.full_fp32():
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.deterministic
     assert (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32) == before
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.deterministic) == before

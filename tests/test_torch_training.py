@@ -327,14 +327,17 @@ def test_dropout_needs_a_key_or_mask():
     x = torch.ones(1, 5, 5, 3)
     with pytest.raises(ValueError, match="rng"):
         tcore.apply_unit(p, unit, x, train=True)
-    mask = torch.zeros(1, 5, 5, 3, dtype=torch.bool)
-    out = tcore.apply_unit(p, unit, x, train=True, mask=mask)
-    np.testing.assert_allclose(out.numpy(),
-                               p["b"].expand(1, 5, 5, 4).numpy(), rtol=1e-6)
+    # the mask is the key's bernoulli draw, the same at every call
+    keep = trng.bernoulli(11, 0.9, x.shape, "cpu")
+    out = tcore.apply_unit(p, unit, x, train=True, rng=11)
+    torch.testing.assert_close(out, tcore.apply_unit(p, unit, x, train=True,
+                                                     rng=11))
+    want = tops.conv2d(torch.where(keep, x / 0.9, 0.0), p["w"], p["b"])
+    torch.testing.assert_close(out, want)
     # inference: dropout is the identity
     torch.testing.assert_close(
         tcore.apply_unit(p, unit, x),
-        tcore.apply_unit(p, unit, x, train=False, mask=mask))
+        tcore.apply_unit(p, unit, x, train=False, rng=11))
 
 
 def test_port_draws_statistics():
@@ -478,9 +481,9 @@ def _grads_of(step, *args):
 
 @pytest.mark.parametrize("num_1d", [4, None], ids=["tracks", "no_tracks"])
 def test_stage_a_remat_equals_no_remat(num_1d):
-    """The checkpointed segments (the tower, the 2D stack with its dropout
-    mask drawn ahead) give the gradients of the plain forward, under the
-    same (real) draws."""
+    """The checkpointed segments (the tower, the 2D stack, whose dropout
+    mask the recompute draws again from its key) give the gradients of the
+    plain forward, under the same (real) draws."""
     gen = torch.Generator().manual_seed(3)
     params = tdec.init_net(gen, num_1d=num_1d)
     seq = torch.rand(2, SEQ_A, 4, generator=gen)
