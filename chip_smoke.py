@@ -22,6 +22,26 @@ Phases (any failure exits non-zero before the final line):
      finite and symmetric;
      then the encoder alone, for the encoder/decoder split; then the whole
      cascade on the card against the CPU plain path on a small window;
+ 4b. sequence-sharded inference ("sharded"): `genomepredict` at the first
+     zoom target with `make_mesh((1, 2))` and `make_mesh((2, 2))` over
+     cuda:0 named 2 and 4 times (one card: the shards run one after another,
+     so this holds their results, not a multi-card speed), bf16 and fp32,
+     the launch counters set to 0 before each request and checked against
+     the shards' group plan, starts equal to the unsharded request's and
+     the maps within FP32_BAR (fp32) or twice the unsharded request's
+     bf16-vs-fp32 difference (bf16); each kernel against its plain version
+     at the bounds of an edge shard's blocks; the fp32 tower alone sharded
+     (under CUDA's sync debug mode "error": the host never waits between
+     shards) and unsharded, its max|d|; every sharded call must leave the
+     current CUDA device as it found it;
+ 4c. the profile ("profile" JSON line): one warm bf16 32 Mb request traced
+     with `utils.profiling.trace` inside `annotate("request")`, the
+     cascade's steps annotated; from the Chrome trace the device's idle
+     share in the request's window (1 - the union of kernel, memcpy and
+     memset intervals / the window), the top 5 device operations by summed
+     time with their counts, the 5 longest idle gaps with the host op or
+     annotation active when each began, and `device_time` of the request
+     beside the smoke's own timer;
   5. `genomepredict_256mb` on a whole synthetic chromosome: an in-memory
      genome of a 145.1 Mb chromosome and a padding chromosome, the region
      list of a whole-chromosome request, `retrieve_multi` for the sequence
@@ -35,6 +55,10 @@ Phases (any failure exits non-zero before the final line):
      250x250 and the end coordinates inside the chromosome; then the
      encoder alone, for the split; then the 256 Mb cascade on the card
      against the CPU plain path on an 8.192 Mb window;
+ 5b. one bf16 `genomepredict_256mb` with a (1, 2) mesh of cuda:0 on the
+     same window (`sharded256` line): launches checked against the shards'
+     group plan, starts equal to the unsharded request's, maps within twice
+     its bf16-vs-fp32 difference;
   6. the variant screens, through the entry points a user calls: random
      folded bundles (two 32 Mb, two 256 Mb) pickled by `zoo.save_bundle`
      and loaded by `load_resources` in bf16 onto the card (checked bf16,
@@ -112,7 +136,8 @@ Phases (any failure exits non-zero before the final line):
      and trainable parts, host sampling, validate, save, restore, peak
      device memory, launches;
  11. one JSON line with every kernel (its launches summed over every request
-     of phases 4-9 and the training phase), then the device line.
+     of phases 4-9, the sharded phases and the training phase), then the
+     device line.
 """
 
 from __future__ import annotations
@@ -436,6 +461,320 @@ def cascade256_phase(torch, cc, bundle, seq, normmat, chrlen, targets, geom):
             check(np.array_equal(p, p.T), f"256 Mb level {j}: not symmetric")
         outs.append(out)
     return outs, secs, total
+
+
+FP32_BAR = 2.0e-6  # the port's fp32 parity bar (max|d| of the maps)
+# the phase-4b meshes: cuda:0 named 2 and 4 times; each computes what a mesh
+# of distinct cards computes, one shard after another
+SHARD_MESHES = ((1, 2), (2, 2))
+
+
+def shard_groups(geom, shape, rows=2):
+    """Tower groups (so each fused kernel's launches) of a sharded request:
+    each of the seq shards runs the tower on its rows with its halos."""
+    from orca_tpu_torch.nn.encoders import fused_group_count
+
+    n_data = shape[0] if rows % shape[0] == 0 else 1
+    local = geom.window_bp // shape[1]
+    return n_data * shape[1] * fused_group_count(rows // n_data,
+                                                 local + 2 * HALO_BP)
+
+
+def counters(cc):
+    return {"fused_first_stage": cc.fused_first_stage.launches,
+            "fused_conv_chain": cc.fused_conv_chain.launches}
+
+
+def reset_counters(cc):
+    cc.fused_first_stage.launches = 0
+    cc.fused_conv_chain.launches = 0
+
+
+def max_map_diff(got, want):
+    return max(float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max())
+               for a, b in zip(got["predictions"][0], want["predictions"][0]))
+
+
+def shard_bound_kernels(torch, cc, enc_params, dtype):
+    """Each kernel against its plain version on one tower group at the
+    bounds only a sharded tower gives it: row 0 is shard 0's first block
+    (valid from 224 kb: the shard's halo and the block's are both past the
+    sequence's start), row 1 the last shard's last block at (1, 2) of a
+    32 Mb window (valid up to 224 kb). Returns the largest max|d|."""
+    lp, cp = enc_params["lconv"], enc_params["conv"]
+
+    def wb(u):
+        return u["w"], u["b"]
+
+    seg = BLOCK_BP + 2 * HALO_BP
+    codes = np.random.RandomState(SEED + 7).randint(0, 4, size=(2, seg))
+    x = torch.from_numpy(np.eye(4, dtype=np.uint8)[codes] * 4).cuda()
+    worst = 0.0
+    for i, (length, _, _, pool, res) in enumerate(stage_shapes(seg)):
+        vs = torch.tensor([2 * HALO_BP // res, 0], dtype=torch.int32,
+                          device="cuda")
+        ve = torch.tensor([length, 2 * HALO_BP // res], dtype=torch.int32,
+                          device="cuda")
+        convs = [wb(lp[i][0]), wb(lp[i][1]), wb(cp[i][0]), wb(cp[i][1])]
+        if i == 0:
+            kw = dict(relus=(False, True, True), residual_idx=0, out_pool=pool)
+            args = (x, convs[0], convs[1:], vs, ve)
+            kern, plain = cc.fused_first_stage, cc.fused_first_stage_plain
+        else:
+            kw = dict(relus=(False, False, True, True),
+                      residual_idx=1 if i < 6 else -1, out_pool=pool)
+            args = (x, convs, vs, ve)
+            kern, plain = cc.fused_conv_chain, cc.fused_conv_chain_plain
+        got, ref = kern(*args, **kw), plain(*args, **kw)
+        d = (got.float() - ref.float()).abs().max().item()
+        m = ref.float().abs().max().item()
+        tol = 1e-4 * max(1.0, m) if dtype == torch.float32 else 2e-2 * m
+        check(d <= tol, f"shard bounds stage {i} {dtype}: max|d| {d} > {tol}")
+        worst = max(worst, d)
+        x = got
+    return worst
+
+
+def same_current_device(torch, before, tag):
+    """A sharded call launches on each shard's card and must give the
+    caller's current device back: an unindexed "cuda" later resolves to
+    it."""
+    after = torch.cuda.current_device()
+    check(after == before, f"{tag}: the current CUDA device went from "
+          f"{before} to {after}")
+
+
+def sharded_phase(torch, cc, bundles, seq, geom, refs, noise):
+    """Phase 4b: `genomepredict` with a (1, 2) and a (2, 2) mesh of cuda:0,
+    bf16 and fp32, each held to the unsharded request (`refs`) at the same
+    zoom target: starts equal, fp32 max|d| <= FP32_BAR, bf16 within twice
+    the unsharded request's own bf16-vs-fp32 difference (`noise`); the
+    launch counters set to 0 before each request and checked against the
+    shards' group plan. Then each kernel at the edge shards' bounds, and the
+    fp32 tower alone sharded and unsharded, the sharded one under CUDA's
+    sync debug mode "error" (no host wait between shards). Each sharded
+    call must leave the thread's current CUDA device as it found it.
+    Returns the launches per dtype."""
+    from orca_tpu_torch.nn.encoders import apply_encoder_tower
+    from orca_tpu_torch.parallel import make_mesh, sharded_encoder_tower
+    from orca_tpu_torch.predict.multiscale import genomepredict
+
+    card = torch.device("cuda", 0)
+    wpos = geom.window_bp // 2
+    totals = {dtype: dict.fromkeys(KERNEL_INFO, 0) for dtype in bundles}
+    for shape in SHARD_MESHES:
+        mesh = make_mesh(shape, devices=[card] * (shape[0] * shape[1]))
+        groups = shard_groups(geom, shape)
+        want = {"fused_first_stage": groups, "fused_conv_chain": 6 * groups}
+        for dtype, bundle in bundles.items():
+            reset_counters(cc)
+            torch.cuda.synchronize()
+            current = torch.cuda.current_device()
+            t0 = time.perf_counter()
+            out = genomepredict(seq, "chrSynthetic", ZOOM_TARGETS[0], wpos,
+                                [bundle], geometry=geom, mesh=mesh)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            same_current_device(torch, current, f"sharded {shape} {dtype}")
+            counts = counters(cc)
+            for k, v in counts.items():
+                totals[dtype][k] += v
+            d = max_map_diff(out, refs[dtype])
+            bar = FP32_BAR if dtype == torch.float32 else 2 * noise
+            print(f"sharded {shape} {dtype}: {secs:.4f} s (unsharded "
+                  f"{refs[dtype]['seconds']:.4f} s), launches {counts} "
+                  f"(expected {want}), max|d| vs unsharded {d:.3e} (bar "
+                  f"{bar:.3e}), starts {out['start_coords']}", flush=True)
+            check(counts == want, f"sharded {shape} {dtype}: launches "
+                  f"{counts} != {want}")
+            check(out["start_coords"] == refs[dtype]["start_coords"],
+                  f"sharded {shape} {dtype}: starts {out['start_coords']} != "
+                  f"{refs[dtype]['start_coords']}")
+            check(d <= bar, f"sharded {shape} {dtype}: max|d| {d} > {bar}")
+    for dtype, bundle in bundles.items():
+        worst = shard_bound_kernels(torch, cc, bundle.encoder, dtype)
+        print(f"shard-bound kernels {dtype}: max|d| vs plain {worst:.3e}",
+              flush=True)
+    bundle = bundles[torch.float32]
+    seq2 = torch.from_numpy(seq).cuda()
+    seq2 = torch.cat([seq2, torch.flip(seq2, dims=(1, 2))])
+    mesh = make_mesh((1, 2), devices=[card] * 2)
+    with torch.inference_mode():
+        want = apply_encoder_tower(bundle.encoder, seq2, halo_bp=HALO_BP)
+        torch.cuda.synchronize()
+        current = torch.cuda.current_device()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            got = sharded_encoder_tower(bundle.encoder, seq2, mesh,
+                                        halo_bp=HALO_BP)
+            queued = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        same_current_device(torch, current, "sharded tower")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        apply_encoder_tower(bundle.encoder, seq2, halo_bp=HALO_BP)
+        torch.cuda.synchronize()
+        one = time.perf_counter() - t0
+        d = (got - want).abs().max().item()
+        m = want.abs().max().item()
+    print(f"sharded tower fp32 (1, 2): {tuple(got.shape)} max|d| vs "
+          f"unsharded {d:.3e} (max|ref| {m:.3e}); host queued the shards in "
+          f"{queued:.4f} s with no sync, done at {total:.4f} s; unsharded "
+          f"{one:.4f} s", flush=True)
+    check(got.shape == want.shape and d <= FP32_BAR * max(1.0, m),
+          f"sharded tower: max|d| {d}")
+    return totals
+
+
+def _merged(intervals):
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
+# the cascade's steps, labelled in the profile phase's trace (the module
+# looks them up at call time)
+PROFILED_STEPS = ("_device_sequence", "_encode_32mb", "_crop_rows",
+                  "_decode_level", "_crop_squares", "_combine_orientations")
+
+
+def read_trace(path, window_name="request"):
+    """From a Chrome trace: the window of the `window_name` annotation, the
+    device's busy time inside it (the union of kernel, memcpy and memset
+    intervals), the top 5 device operations by summed time with their
+    counts, the 5 longest idle gaps, each with the innermost host op or
+    annotation active when it began (`during`), the annotations around it
+    (`in`) and the first host ops that began inside it (`then`), the idle
+    time by gap length, and per annotated step (`steps`, the names in
+    PROFILED_STEPS) its host time and the device's idle time inside it.
+    Times in ms."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    win = [e for e in events if e["name"] == window_name
+           and e.get("cat") == "user_annotation"]
+    check(len(win) == 1, f"trace: {len(win)} '{window_name}' windows")
+    w0, w1 = win[0]["ts"], win[0]["ts"] + win[0]["dur"]
+    dev = [e for e in events if e.get("cat") in DEVICE_CATS
+           and e["ts"] < w1 and e["ts"] + e["dur"] > w0]
+    check(dev, "trace: no device operation inside the request")
+    busy = _merged((max(e["ts"], w0), min(e["ts"] + e["dur"], w1))
+                   for e in dev)
+    busy_us = sum(b - a for a, b in busy)
+    ops = {}
+    for e in dev:
+        o = ops.setdefault(e["name"][:90], [0, 0.0])
+        o[0] += 1
+        o[1] += e["dur"]
+    top = sorted(ops.items(), key=lambda kv: -kv[1][1])[:5]
+    host = [e for e in events if e.get("cat") in HOST_CATS]
+    edges = [w0] + [x for ab in busy for x in ab] + [w1]
+    gaps = [(edges[i + 1] - edges[i], edges[i])
+            for i in range(0, len(edges), 2) if edges[i + 1] > edges[i]]
+    out_gaps = []
+    for dur, start in sorted(gaps, reverse=True)[:5]:
+        active = [e for e in host if e["ts"] <= start < e["ts"] + e["dur"]]
+        inner = min(active, key=lambda e: e["dur"])["name"] if active else "-"
+        outer = [e["name"] for e in sorted(active, key=lambda e: -e["dur"])
+                 if e.get("cat") == "user_annotation"]
+        then = sorted((e for e in host if start < e["ts"] < start + dur),
+                      key=lambda e: e["ts"])
+        out_gaps.append({"ms": round(dur / 1e3, 4),
+                         "at_ms": round((start - w0) / 1e3, 4),
+                         "during": inner, "in": outer[:4],
+                         "then": [e["name"][:60] for e in then[:4]]})
+    by_length = {"under_0.05ms": [0, 0.0], "0.05_1ms": [0, 0.0],
+                 "over_1ms": [0, 0.0]}
+    for dur, _ in gaps:
+        key = ("under_0.05ms" if dur < 50 else "0.05_1ms" if dur <= 1000
+               else "over_1ms")
+        by_length[key][0] += 1
+        by_length[key][1] += dur / 1e3
+    steps = {}
+    for name in PROFILED_STEPS:
+        spans = _merged((e["ts"], e["ts"] + e["dur"]) for e in events
+                        if e["name"] == name
+                        and e.get("cat") == "user_annotation")
+        host_us = sum(b - a for a, b in spans)
+        busy_in = sum(max(0, min(b, d) - max(a, c))
+                      for a, b in spans for c, d in busy)
+        steps[name] = {"calls_ms": host_us / 1e3,
+                       "device_idle_ms": (host_us - busy_in) / 1e3}
+    return {
+        "window_ms": (w1 - w0) / 1e3, "device_busy_ms": busy_us / 1e3,
+        "idle_share": 1 - busy_us / (w1 - w0),
+        "device_ops": len(dev),
+        "top_ops": [{"name": k, "count": v[0], "ms": v[1] / 1e3}
+                    for k, v in top],
+        "gaps": out_gaps,
+        "idle_by_gap_length": {k: {"count": v[0], "ms": v[1]}
+                               for k, v in by_length.items()},
+        "steps": steps,
+    }
+
+
+def profile_phase(torch, ms, bundle, seq, geom, smoke_s, smi):
+    """Phase 4c: one warm bf16 32 Mb request traced (`utils.profiling.trace`
+    inside an `annotate("request")`, the cascade's steps annotated too), the
+    device's idle share in the request's window read from the Chrome trace,
+    and `device_time` of the same request beside the smoke's own timer.
+    Prints one JSON line."""
+    import tempfile
+
+    from orca_tpu_torch.utils.profiling import annotate, device_time, trace
+
+    wpos = geom.window_bp // 2
+
+    def request():
+        return ms.genomepredict(seq, "chrSynthetic", ZOOM_TARGETS[0], wpos,
+                                [bundle], geometry=geom)
+
+    def labelled(name, fn):
+        def run(*args, **kwargs):
+            with annotate(name):
+                return fn(*args, **kwargs)
+        return run
+
+    request()
+    torch.cuda.synchronize()
+    real = {name: getattr(ms, name) for name in PROFILED_STEPS}
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+        try:
+            for name, fn in real.items():
+                setattr(ms, name, labelled(name, fn))
+            with trace(tmp) as path:
+                t0 = time.perf_counter()
+                with annotate("request"):
+                    request()
+                torch.cuda.synchronize()
+                traced_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+            export_s = time.perf_counter() - t0
+        finally:
+            for name, fn in real.items():
+                setattr(ms, name, fn)
+        found = read_trace(path)
+        trace_mb = os.path.getsize(path) / 1e6
+    timed = device_time(request, iters=3, warmup=1)
+    found.update({"card": smi, "request": "bf16 32 Mb genomepredict, zoom "
+                  f"{ZOOM_TARGETS[0]}", "device_time_s": timed,
+                  "smoke_request_s": smoke_s, "traced_s": traced_s,
+                  "export_s": export_s, "trace_mb": trace_mb})
+    check(0.0 < found["idle_share"] < 1.0,
+          f"idle share {found['idle_share']} outside (0, 1)")
+    check(found["top_ops"] and found["gaps"], "profile: no ops or no gaps")
+    print(json.dumps({"profile": found}), flush=True)
+    return found
 
 
 def peak_rss_gib():
@@ -1995,7 +2334,7 @@ def main() -> int:
             m = max(np.abs(a).max() for a in outs[0]["predictions"][0])
             print(f"  fp32 vs bf16 request at {targets[0]}: max|d| {d:.3e} "
                   f"max|fp32| {m:.3e}", flush=True)
-            fp32_secs = secs
+            fp32_first, fp32_secs, noise32 = outs[0], secs, d
 
     # encoder alone (bf16 and fp32), for the encoder/decoder split
     seq2 = torch.from_numpy(seq).cuda()
@@ -2034,6 +2373,25 @@ def main() -> int:
     print(f"small window fp32 card vs CPU plain: max|d| {d:.3e} "
           f"max|ref| {m:.3e}", flush=True)
     check(d <= 1e-4 * max(1.0, m), f"small window: max|d| {d}")
+
+    # 4b. the sequence-sharded path, on meshes that name cuda:0 2 and 4
+    # times (one card: this checks the shards' results, not a multi-card
+    # speed)
+    refs = {
+        torch.bfloat16: dict(bf16_first,
+                             seconds=statistics.median(bf16_secs[1:])),
+        torch.float32: dict(fp32_first, seconds=statistics.median(fp32_secs)),
+    }
+    counts = sharded_phase(
+        torch, cc, {torch.bfloat16: bf16_bundle, torch.float32: fp32_bundle},
+        seq, ms.GEOM_32M, refs, noise32)
+    for dtype, c in counts.items():
+        for k, v in c.items():
+            launches[dtype][k] += v
+
+    # 4c. one warm bf16 request traced: the device's idle share
+    profile_phase(torch, ms, bf16_bundle, seq, ms.GEOM_32M,
+                  refs[torch.bfloat16]["seconds"], smi)
 
     # 5. the 256 Mb path: a whole chromosome plus padding from a genome
     del bf16_bundle, fp32_bundle, seq2
@@ -2093,13 +2451,49 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         if dtype == torch.bfloat16:
-            bf16_first = outs[0]
+            bf16_first, bf16_256_secs = outs[0], secs
         else:
             d = max(np.abs(a - b).max() for a, b in zip(
                 outs[0]["predictions"][0], bf16_first["predictions"][0]))
             m = max(np.abs(a).max() for a in outs[0]["predictions"][0])
             print(f"  fp32 vs bf16 256 Mb request at {targets[0]}: max|d| "
                   f"{d:.3e} max|fp32| {m:.3e}", flush=True)
+            noise256 = d
+
+    # 5b. one bf16 256 Mb request with a (1, 2) mesh of cuda:0, held to the
+    # unsharded request at the same zoom target
+    from orca_tpu_torch.parallel import make_mesh
+
+    card = torch.device("cuda", 0)
+    groups = shard_groups(geom, (1, 2))
+    want = {"fused_first_stage": groups, "fused_conv_chain": 6 * groups}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters(cc)
+    torch.cuda.synchronize()
+    current = torch.cuda.current_device()
+    t0 = time.perf_counter()
+    out = ms.genomepredict_256mb(
+        seq256, "chrM", [normmats[0]], chrlen, ZOOM_TARGETS_256[0], WPOS_256,
+        [bf16_256], padding_chr="chr1", geometry=geom,
+        mesh=make_mesh((1, 2), devices=[card] * 2))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    same_current_device(torch, current, "sharded 256 Mb")
+    counts = counters(cc)
+    d = max_map_diff(out, bf16_first)
+    print(f"sharded256 (1, 2) bf16: {secs:.4f} s (unsharded "
+          f"{[round(s, 4) for s in bf16_256_secs]}), launches {counts} "
+          f"(expected {want}), max|d| vs unsharded {d:.3e} (bar "
+          f"{2 * noise256:.3e}), starts {out['start_coords']}, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    check(counts == want, f"sharded 256 Mb: launches {counts} != {want}")
+    check(out["start_coords"] == bf16_first["start_coords"],
+          f"sharded 256 Mb: starts {out['start_coords']} != "
+          f"{bf16_first['start_coords']}")
+    check(d <= 2 * noise256, f"sharded 256 Mb: max|d| {d} > {2 * noise256}")
+    for k, v in counts.items():
+        launches[torch.bfloat16][k] += v
 
     # the split of a 256 Mb request: the background's NaN fill on the host,
     # the sequence's copy to the card, encoder + both pyramids alone; the

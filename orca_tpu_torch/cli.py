@@ -87,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
                        help="skip observed micro-C retrieval")
         p.add_argument("--seq-shards", type=int, default=1,
                        help="shard the encoder sequence axis over this many "
-                       "devices (not ported yet: ROADMAP A16)")
+                       "devices")
         p.add_argument("--assembly", default="hg38",
                        choices=["hg38", "GRCh38", "hg19", "GRCh37"],
                        help="genome assembly for the coordinates (the "
@@ -187,10 +187,28 @@ def _device(args) -> str:
     return "cpu" if args.cpu else "cuda"
 
 
-def _check_seq_shards(args, parser):
-    if args.seq_shards > 1:
-        parser.error("--seq-shards > 1 shards the encoder over several cards,"
-                     " which is not ported yet (ROADMAP A16)")
+def _set_seq_shards(args, parser, meshes=None):
+    """--seq-shards n: set the inference mesh to n sequence shards over the
+    devices a command runs on (every CUDA card, or the one CPU under
+    --cpu); a count that does not divide them is the parser's error.
+    `meshes` (the warm server's) keeps one mesh per count and device, so
+    the parameter copies a mesh caches serve every later command."""
+    from orca_tpu_torch.parallel.mesh import (
+        inference_mesh_from_seq_shards,
+        set_inference_mesh,
+    )
+
+    device = "cpu" if getattr(args, "cpu", False) else "cuda"
+    key = (args.seq_shards, device)
+    mesh = meshes.get(key) if meshes is not None else None
+    if mesh is None:
+        try:
+            mesh = inference_mesh_from_seq_shards(args.seq_shards, device)
+        except (ValueError, RuntimeError) as e:
+            parser.error(str(e))
+        if meshes is not None:
+            meshes[key] = mesh
+    set_inference_mesh(mesh)
 
 
 def _convert(args) -> int:
@@ -263,13 +281,14 @@ def main(argv=None):
         return _train(args, parser)
 
     # prediction modes
-    _check_seq_shards(args, parser)
     if not args.cpu:
         import torch
 
         if not torch.cuda.is_available():
             parser.error("CUDA is not available: predictions run on the "
                          "CUDA card; pass --cpu to run on the host CPU")
+    if args.seq_shards > 1:
+        _set_seq_shards(args, parser)
 
     # validate the coordinate before loading gigabytes of resources
     try:
@@ -331,13 +350,21 @@ def _serve(args, parser):
     and prints READY / OK / ERR lines on stdout. Resources load once per
     model family, directories and device; with --prewarm each model of the
     family runs one request before READY (the first request of a process
-    pays set-up that later ones do not).
+    pays set-up that later ones do not). The server's --seq-shards sets the
+    inference mesh for every command; a command's own --seq-shards sets it
+    for that command alone, from one mesh kept per count and device.
     """
     import shlex
 
+    from orca_tpu_torch.parallel.mesh import (
+        get_inference_mesh,
+        set_inference_mesh,
+    )
     from orca_tpu_torch.predict.resources import load_resources
 
-    _check_seq_shards(args, parser)
+    meshes = {}
+    if args.seq_shards > 1:
+        _set_seq_shards(args, parser, meshes)
 
     # Surface parser.error messages (bad flags, missing resources) to the
     # client as ERR lines instead of a bare SystemExit.
@@ -386,16 +413,21 @@ def _serve(args, parser):
             if args.resource_dir and "--resource-dir" not in argv:
                 argv += ["--resource-dir", args.resource_dir]
             cmd_args = parser.parse_args(argv)
-            _check_seq_shards(cmd_args, parser)
-            fam = "256M" if cmd_args.use_256m else "32M"
-            device = _device(cmd_args)
-            key = (fam, cmd_args.model_dir, cmd_args.resource_dir, device)
-            if key not in res_cache:
-                res_cache[key] = load_resources(
-                    models=[fam], model_dir=cmd_args.model_dir,
-                    resource_dir=cmd_args.resource_dir, device=device,
-                )
-            _run_prediction(cmd_args, parser, res=res_cache[key])
+            server_mesh = get_inference_mesh()
+            try:
+                if cmd_args.seq_shards > 1:
+                    _set_seq_shards(cmd_args, parser, meshes)
+                fam = "256M" if cmd_args.use_256m else "32M"
+                device = _device(cmd_args)
+                key = (fam, cmd_args.model_dir, cmd_args.resource_dir, device)
+                if key not in res_cache:
+                    res_cache[key] = load_resources(
+                        models=[fam], model_dir=cmd_args.model_dir,
+                        resource_dir=cmd_args.resource_dir, device=device,
+                    )
+                _run_prediction(cmd_args, parser, res=res_cache[key])
+            finally:
+                set_inference_mesh(server_mesh)
             print("OK", flush=True)
         except SystemExit:
             print("ERR command rejected (see stderr)", flush=True)

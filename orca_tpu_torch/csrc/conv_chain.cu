@@ -1020,6 +1020,29 @@ size_t fp32_smem_bytes(int cin, int c, int tile) {
   return bytes;
 }
 
+// Makes `device` the thread's current device for one launch and sets the
+// caller's device back on every return, so a launch on another card leaves
+// the current device as it found it.
+class DeviceScope {
+ public:
+  explicit DeviceScope(int device) {
+    err_ = cudaGetDevice(&prev_);
+    if (err_ == cudaSuccess && prev_ != device) {
+      err_ = cudaSetDevice(device);
+      changed_ = err_ == cudaSuccess;
+    }
+  }
+  ~DeviceScope() {
+    if (changed_) cudaSetDevice(prev_);
+  }
+  cudaError_t error() const { return err_; }
+
+ private:
+  int prev_ = 0;
+  bool changed_ = false;
+  cudaError_t err_;
+};
+
 // Launch one chain. in_kind: 0 = the I/O dtype, 2 = uint8 quarter-scale
 // one-hot. `smem` is the wrapper's count of the dynamic shared memory, held
 // against this file's own.
@@ -1029,7 +1052,8 @@ int launch_chain(int device, const void* x, const void* const* w,
                  int R, int L, int cin, int c, int tile, int pool,
                  int relu_mask, int residual, bool first, size_t smem,
                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  const DeviceScope scope(device);
+  cudaError_t err = scope.error();
   if (err != cudaSuccess) return (int)err;
   ChainWeights<IoT> wts;
   for (int k = 0; k < 4; ++k) {

@@ -104,6 +104,16 @@ def _per_row(bound, n: int) -> List[int]:
     return vals * n if len(vals) == 1 else vals
 
 
+def _bounds(values: List[int], device: torch.device) -> torch.Tensor:
+    """Per-row bounds as an int32 tensor on `device`. A CUDA copy goes from
+    pinned memory without blocking: a blocking copy would make the host wait
+    for the card's queue, and a sharded tower's shards would not overlap."""
+    t = torch.tensor(values, dtype=torch.int32)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 def apply_encoder_stages_masked(params: dict, x: torch.Tensor, valid_start_bp,
                                 valid_end_bp) -> torch.Tensor:
     """apply_encoder_stages over an array whose positions outside
@@ -151,10 +161,8 @@ def apply_encoder_stages_fused(params: dict, x: torch.Tensor, valid_start_bp,
     dtype = params["lconv"][0][0]["w"].dtype
     if x.dtype != torch.uint8:
         x = x.to(dtype)
-    vs_bp = torch.tensor(_per_row(valid_start_bp, n), dtype=torch.int32,
-                         device=x.device)
-    ve_bp = torch.tensor(_per_row(valid_end_bp, n), dtype=torch.int32,
-                         device=x.device)
+    vs_bp = _bounds(_per_row(valid_start_bp, n), x.device)
+    ve_bp = _bounds(_per_row(valid_end_bp, n), x.device)
     lp, cp = params["lconv"], params["conv"]
 
     def wb(unit):

@@ -24,6 +24,8 @@ import torch
 
 from orca_tpu_torch.models.zoo import LEVELS_256M, Model256MBundle, ModelBundle
 from orca_tpu_torch.nn import decoders, encoders
+from orca_tpu_torch.parallel.mesh import Mesh, get_inference_mesh
+from orca_tpu_torch.parallel.sequence import sharded_encoder_tower
 from orca_tpu_torch.utils.config import get_config, resolve_device
 
 BINS = 8000  # 4 kb bins in a 32 Mb window
@@ -72,11 +74,23 @@ def _device_sequence(sequence, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def _encode_32mb(bundle: ModelBundle, seq: torch.Tensor) -> Dict[int, torch.Tensor]:
-    """One-hot (N, L, 4) -> encodings at levels 1..32 (finest L/4000 bins)."""
-    feats = encoders.apply_encoder_tower(
-        bundle.encoder, seq, halo_bp=get_config().encoder_halo_bp
-    )
+def _tower(params: dict, seq: torch.Tensor,
+           mesh: Optional[Mesh]) -> torch.Tensor:
+    """The bp -> 4 kb encoder tower on the sequence's device, or with a mesh
+    sequence-sharded over its 'seq' axis (the encodings gathered back on the
+    sequence's device)."""
+    halo = get_config().encoder_halo_bp
+    if mesh is None:
+        return encoders.apply_encoder_tower(params, seq, halo_bp=halo)
+    return sharded_encoder_tower(params, seq, mesh, halo_bp=halo)
+
+
+def _encode_32mb(bundle: ModelBundle, seq: torch.Tensor,
+                 mesh: Optional[Mesh] = None) -> Dict[int, torch.Tensor]:
+    """One-hot (N, L, 4) -> encodings at levels 1..32 (finest L/4000 bins);
+    with a mesh the tower runs sequence-sharded over it, and the pyramid on
+    the bundle's device."""
+    feats = _tower(bundle.encoder, seq, mesh)
     encs = encoders.apply_pyramid(bundle.pyramid, feats, levels=5,
                                   up_pass=bundle.pyramid_up_pass)
     return dict(zip(LEVEL_ORDER, encs))
@@ -148,12 +162,13 @@ def _combine_orientations(pred: torch.Tensor) -> torch.Tensor:
 
 
 def _cascade_32mb(bundle: ModelBundle, geom: CascadeGeometry, seq, mpos, wpos,
-                  log_normmats: np.ndarray):
+                  log_normmats: np.ndarray, mesh: Optional[Mesh] = None):
     """Full fwd+RC cascade; returns (stacked (6, N, crop, crop, C) float32,
-    starts (6,) int32) on the sequence's device."""
+    starts (6,) int32) on the sequence's device. With a mesh the encoder
+    tower runs sequence-sharded over it."""
     n = seq.shape[0]
     seq2 = torch.cat([seq, torch.flip(seq, dims=(1, 2))])
-    encs = _encode_32mb(bundle, seq2)
+    encs = _encode_32mb(bundle, seq2, mesh)
     device = seq.device
     start_bins = torch.zeros(2 * n, dtype=torch.int32, device=device)
     mpos = torch.tensor(mpos, dtype=torch.float32, device=device)
@@ -179,38 +194,41 @@ def _zero_window(geometry: CascadeGeometry, device) -> torch.Tensor:
 
 def warmup_cascade_32m(bundle: ModelBundle,
                        geometry: CascadeGeometry = GEOM_32M,
-                       device=None) -> float:
+                       device=None, mesh: Optional[Mesh] = None) -> float:
     """Counterpart of the JAX package's program warm-up: torch compiles
     nothing, so this runs one request on an all-zero packed window at
     `geometry` (production by default), which pays a process's first-request
     set-up (cuDNN plans, allocator pools) before a client's first request.
-    The bundle's parameters live on `device` (None = CUDA). Returns the
-    seconds taken."""
+    The bundle's parameters live on `device` (None = CUDA). `mesh` (None =
+    the inference mesh, `parallel.mesh.get_inference_mesh()`) is the mesh
+    the requests will shard over. Returns the seconds taken."""
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else get_inference_mesh()
     t0 = time.perf_counter()
     with torch.inference_mode():
         preds, _ = _cascade_32mb(bundle, geometry,
                                  _zero_window(geometry, device),
                                  geometry.window_bp // 2,
                                  geometry.window_bp // 2,
-                                 bundle.log_normmats())
+                                 bundle.log_normmats(), mesh)
         preds.cpu()
     return time.perf_counter() - t0
 
 
 def warmup_cascade_256m(bundle: Model256MBundle,
                         geometry: CascadeGeometry = GEOM_256M,
-                        device=None) -> float:
+                        device=None, mesh: Optional[Mesh] = None) -> float:
     """The 256 Mb counterpart of `warmup_cascade_32m`: one request on an
     all-zero window with a flat background. Returns the seconds taken."""
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else get_inference_mesh()
     t0 = time.perf_counter()
     with torch.inference_mode():
         preds, _, _ = _cascade_256mb(
             bundle, geometry, _zero_window(geometry, device),
             geometry.window_bp // 2, geometry.window_bp // 2,
             geometry.window_bp,
-            np.ones((geometry.bins, geometry.bins), np.float32))
+            np.ones((geometry.bins, geometry.bins), np.float32), mesh)
         preds.cpu()
     return time.perf_counter() - t0
 
@@ -243,20 +261,26 @@ def genomepredict(
     nan_thresh: float = 1.0,
     geometry: CascadeGeometry = GEOM_32M,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> dict:
     """Multiscale 32 Mb prediction: returns a dict with keys
     predictions/experiments/normmats/start_coords/end_coords/chr/annos.
 
     sequence: (1, window_bp, 4) one-hot (float, or uint8 quarter-scale).
     models: ModelBundles whose parameters live on `device` (None = CUDA).
+    mesh: a `parallel.mesh.Mesh` with a 'seq' axis (None = the inference
+        mesh, `parallel.mesh.get_inference_mesh()`): the encoder tower runs
+        sequence-sharded across it (`parallel.sequence`), and the encodings
+        are gathered on `device` for the pyramid and decoders.
     """
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else get_inference_mesh()
     seq = _device_sequence(sequence, device)
     allpreds, allstarts = [], []
     with torch.inference_mode():
         for bundle in models:
             preds, starts = _cascade_32mb(
-                bundle, geometry, seq, mpos, wpos, bundle.log_normmats()
+                bundle, geometry, seq, mpos, wpos, bundle.log_normmats(), mesh
             )
             allpreds.append(preds.cpu().numpy())
             allstarts.append(starts.cpu().numpy())
@@ -344,14 +368,12 @@ def _process_annotation(annotation, starts, window_bins, total_bins=BINS):
 # --------------------------------------------------------------------------
 
 
-def _encode_256mb(bundle: Model256MBundle,
-                  seq: torch.Tensor) -> Dict[int, torch.Tensor]:
+def _encode_256mb(bundle: Model256MBundle, seq: torch.Tensor,
+                  mesh: Optional[Mesh] = None) -> Dict[int, torch.Tensor]:
     """One-hot (N, L, 4) -> encodings at levels 32..256 (finest L/128000
-    bins): the tower, the 32 Mb pyramid's last output, then the 3-level
-    pyramid."""
-    feats = encoders.apply_encoder_tower(
-        bundle.encoder, seq, halo_bp=get_config().encoder_halo_bp
-    )
+    bins): the tower (sequence-sharded over `mesh` when given), the 32 Mb
+    pyramid's last output, then the 3-level pyramid."""
+    feats = _tower(bundle.encoder, seq, mesh)
     enc128k = encoders.apply_pyramid(bundle.pyramid1, feats, levels=5,
                                      up_pass=True)[-1]
     encs = encoders.apply_pyramid(bundle.pyramid, enc128k, levels=3,
@@ -359,12 +381,13 @@ def _encode_256mb(bundle: Model256MBundle,
     return dict(zip(LEVELS_256M, encs))
 
 
-def _encode_256mb_fwd_rc(bundle: Model256MBundle,
-                         seq: torch.Tensor) -> Dict[int, torch.Tensor]:
+def _encode_256mb_fwd_rc(bundle: Model256MBundle, seq: torch.Tensor,
+                         mesh: Optional[Mesh] = None
+                         ) -> Dict[int, torch.Tensor]:
     """The encodings of the orientation-batched input: forward rows, then
     their reverse complements."""
     seq2 = torch.cat([seq, torch.flip(seq, dims=(1, 2))])
-    return _encode_256mb(bundle, seq2)
+    return _encode_256mb(bundle, seq2, mesh)
 
 
 def _block_average_rows(normmat: torch.Tensor, starts: Sequence[int],
@@ -433,13 +456,14 @@ def _decode_level_256(bundle: Model256MBundle, geom: CascadeGeometry,
 
 
 def _cascade_256mb(bundle: Model256MBundle, geom: CascadeGeometry, seq, mpos,
-                   wpos, chrlen, normmat):
+                   wpos, chrlen, normmat, mesh: Optional[Mesh] = None):
     """Full fwd+RC 4-level cascade with per-row backgrounds; returns
     (stacked (4, N, crop, crop) float32 maps, starts (4,) int32, forward
-    backgrounds (4, crop, crop)) on the sequence's device."""
+    backgrounds (4, crop, crop)) on the sequence's device. With a mesh the
+    encoder tower runs sequence-sharded over it."""
     n = seq.shape[0]
     device = seq.device
-    encs = _encode_256mb_fwd_rc(bundle, seq)
+    encs = _encode_256mb_fwd_rc(bundle, seq, mesh)
     start_bins = torch.zeros(2 * n, dtype=torch.int32, device=device)
     mpos, wpos, chrlen = (torch.tensor(v, dtype=torch.float32, device=device)
                           for v in (mpos, wpos, chrlen))
@@ -488,6 +512,7 @@ def genomepredict_256mb(
     nan_thresh: float = 1.0,
     geometry: CascadeGeometry = GEOM_256M,
     device=None,
+    mesh: Optional[Mesh] = None,
 ) -> dict:
     """Multiscale 256 Mb prediction: returns a dict with keys
     predictions/experiments/normmats/start_coords/end_coords/chr/
@@ -499,15 +524,18 @@ def genomepredict_256mb(
         (retrieval.assemble_normmat); NaNs are filled with the least value.
     chrlen: length of the first chromosome; zoom windows stay inside it.
     models: Model256MBundles whose parameters live on `device` (None = CUDA).
+    mesh: as in `genomepredict` (None = the inference mesh): the encoder
+        tower tiles the window across the mesh's 'seq' axis.
     """
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else get_inference_mesh()
     seq = _device_sequence(sequence, device)
     allpreds, allstarts, allnormmats = [], [], []
     with torch.inference_mode():
         for ii, bundle in enumerate(models):
             preds, starts, norms = _cascade_256mb(
                 bundle, geometry, seq, mpos, wpos, chrlen,
-                _filled_background(normmats[ii]),
+                _filled_background(normmats[ii]), mesh,
             )
             allpreds.append(preds.cpu().numpy())
             allstarts.append(starts.cpu().numpy())

@@ -46,11 +46,19 @@ _config: Optional[OrcaConfig] = None
 
 
 def get_config() -> OrcaConfig:
-    """The process-wide configuration (its fields may be set in place)."""
+    """The process-wide configuration: the one `set_config` installed, else
+    an `OrcaConfig()` built from the environment on first use."""
     global _config
     if _config is None:
         _config = OrcaConfig()
     return _config
+
+
+def set_config(config: OrcaConfig) -> None:
+    """Install `config` as the process-wide configuration, e.g.
+    `set_config(dataclasses.replace(get_config(), param_dtype="bfloat16"))`."""
+    global _config
+    _config = config
 
 
 def resolve_device(device=None) -> torch.device:

@@ -93,8 +93,8 @@ def replace_encoders(monkeypatch, encs, jdtype=jnp.float32,
     )
     monkeypatch.setattr(
         tms, "_encode_256mb_fwd_rc",
-        lambda bundle, seq: {lv: torch.from_numpy(encs[lv]).to(tdtype)
-                             for lv in LEVELS},
+        lambda bundle, seq, mesh=None: {
+            lv: torch.from_numpy(encs[lv]).to(tdtype) for lv in LEVELS},
     )
 
 

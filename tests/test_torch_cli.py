@@ -12,8 +12,10 @@
   * `convert` on one directory of reference-format statedicts: the bundles
     both packages pickle are equal;
   * the device rule: no CUDA and no --cpu refuses a prediction before any
-    model runs; --seq-shards > 1 and the unported subcommands name their
-    ROADMAP item.
+    model runs; the unported subcommands name their ROADMAP item;
+  * --seq-shards sets the inference mesh in `serve`, at start-up and per
+    command, and a count that does not divide the devices is refused with
+    the JAX package's message.
 """
 
 import argparse
@@ -305,15 +307,53 @@ def test_serve_per_line_cpu_loads_for_the_cpu(monkeypatch, capsys):
 
 
 def test_serve_seq_shards_names_a16(monkeypatch, capsys):
+    """--seq-shards in `serve` (it no longer names ROADMAP A16): the
+    server's count sets the inference mesh for every command, a command's
+    own count for that command alone, one mesh kept per count (so its
+    parameter copies outlive the command), and a count that does not divide
+    the devices is refused with the JAX package's message: as an ERR line
+    for a command, as the parser's error at start-up. Without CUDA the
+    server's mesh over the cards is refused too."""
+    from orca_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "_INFERENCE_MESH", None)
+    seen = []
+    monkeypatch.setattr(tcli, "_run_prediction",
+                        lambda args, parser, res=None: seen.append(
+                            tmesh.get_inference_mesh()))
+    monkeypatch.setattr(tres, "load_resources", lambda **kw: "RES")
     monkeypatch.setattr(sys, "stdin", io.StringIO(
         "region chr1:1-2 /tmp/a --seq-shards 2 --cpu\nquit\n"))
-    monkeypatch.setattr(tcli, "_run_prediction", tcli._run_prediction)
     assert tcli.main(["serve"]) == 0
     lines = capsys.readouterr().out.splitlines()
-    assert lines[0] == "READY" and "A16" in lines[1]
+    assert lines == ["READY", "ERR RuntimeError: seq_shards=2 does not "
+                     "divide 1 devices"]
+    assert seen == []
     with pytest.raises(SystemExit):
         tcli.main(["serve", "--seq-shards", "2"])
-    assert "A16" in capsys.readouterr().err
+    assert "CUDA is not available" in capsys.readouterr().err
+
+    monkeypatch.setattr(tmesh, "local_devices",
+                        lambda device_type="cuda": [torch.device("cpu")] * 4)
+    monkeypatch.setattr(sys, "stdin", io.StringIO(
+        "region chr1:1-2 /tmp/a\n"
+        "region chr1:1-2 /tmp/b --seq-shards 4\n"
+        "region chr1:1-2 /tmp/c --seq-shards 3\n"
+        "region chr1:1-2 /tmp/d\n"
+        "region chr1:1-2 /tmp/e --seq-shards 4\n"
+        "region chr1:1-2 /tmp/f --seq-shards 2\nquit\n"))
+    assert tcli.main(["serve", "--seq-shards", "2"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines == ["READY", "OK", "OK", "ERR RuntimeError: seq_shards=3 "
+                     "does not divide 4 devices", "OK", "OK", "OK"]
+    assert [m.shape["seq"] for m in seen] == [2, 4, 2, 4, 2]
+    assert seen[0] is seen[2] is seen[4] is tmesh.get_inference_mesh()
+    assert seen[1] is seen[3]
+    tmesh.set_inference_mesh(None)
+    with pytest.raises(SystemExit):
+        tcli.main(["serve", "--seq-shards", "3"])
+    assert ("seq_shards=3 does not divide 4 devices"
+            in capsys.readouterr().err)
 
 
 def _fasta(path):
@@ -460,17 +500,26 @@ def test_convert_equal(statedict_dirs, family, name, tmp_path, capsys):
     bundles_equal(got, want)
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["region", "chr1:1-2", "out", "--cpu", "--seq-shards", "2"], "A16"),
-    (["certify", "/ref", "--synthetic"], "A17"),
-    (["train", "a", "--config", "job.json", "--mesh", "data=2"], "A16"),
-    (["bench"], "A14"),
-])
-def test_unported_paths_name_their_roadmap_item(argv, item, capsys):
+@pytest.mark.parametrize("argv,said", [
+    # --seq-shards is ported: on the one CPU of --cpu a count of 2 fails
+    # with the JAX package's message
+    (["region", "chr1:1-2", "out", "--cpu", "--seq-shards", "2"],
+     "seq_shards=2 does not divide 1 devices"),
+    (["certify", "/ref", "--synthetic"], "ROADMAP A17"),
+    (["train", "a", "--config", "job.json", "--mesh", "data=2"],
+     "ROADMAP A16"),
+    (["bench"], "ROADMAP A14"),
+], ids=["argv0-A16", "argv1-A17", "argv2-A16", "argv3-A14"])
+def test_unported_paths_name_their_roadmap_item(argv, said, capsys,
+                                                monkeypatch):
+    from orca_tpu_torch.parallel import mesh as tmesh
+
+    monkeypatch.setattr(tmesh, "_INFERENCE_MESH", None)
     with pytest.raises(SystemExit) as e:
         tcli.main(argv)
     assert e.value.code == 2
-    assert f"ROADMAP {item}" in capsys.readouterr().err
+    assert said in capsys.readouterr().err
+    assert tmesh.get_inference_mesh() is None
 
 
 def test_warmup_32m_runs_one_request_on_cpu(monkeypatch):
@@ -500,7 +549,7 @@ def test_warmup_256m_runs_one_request_on_cpu(monkeypatch):
     bundle = tzoo.fold_256m_bundle(tzoo.random_256m_bundle(0, "cpu"))
     seen = []
 
-    def encode(bundle, seq):
+    def encode(bundle, seq, mesh=None):
         seen.append((tuple(seq.shape), int(seq.sum())))
         return {lv: torch.zeros(2, geom.window_bp // (4000 * lv), 128)
                 for lv in tzoo.LEVELS_256M}

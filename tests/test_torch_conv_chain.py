@@ -393,3 +393,48 @@ def test_cuda_1m_net_runs_kernels_or_refuses():
     for g, w in zip(got, want):
         assert g.shape == w.shape
         assert np.abs(g - w).max() <= 1e-4 * max(1.0, np.abs(w).max())
+
+
+@pytest.mark.gpu
+def test_cuda_launch_on_another_card_keeps_the_current_device():
+    """With two cards: a kernel launched on cuda:1 matches its plain version
+    and leaves the thread's current device at cuda:0, and the encoder tower
+    sharded over (cuda:0, cuda:1) equals the one-card tower with cuda:0
+    still current, so a later unindexed "cuda" still means cuda:0."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from orca_tpu_torch.models.zoo import _map_tensors
+    from orca_tpu_torch.nn import encoders
+    from orca_tpu_torch.nn.core import fold_params
+    from orca_tpu_torch.parallel import make_mesh, sharded_encoder_tower
+
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    torch.cuda.set_device(0)
+    rng = np.random.RandomState(12)
+    weights = [(w.to(cards[1]), b.to(cards[1]))
+               for w, b in _torch_w(_chain_weights(rng, 64, 64, 4))]
+    x = torch.from_numpy(_rand(rng, 2, 4000, 64)).to(cards[1])
+    vs, ve = (t.to(cards[1]) for t in _bounds([0, 100], [4000, 3900]))
+    kw = dict(relus=(False, False, True, True), residual_idx=1, out_pool=4)
+    got = cc.fused_conv_chain(x, weights, vs, ve, **kw)
+    assert torch.cuda.current_device() == 0
+    want = cc.fused_conv_chain_plain(x, weights, vs, ve, **kw)
+    d = (got - want).abs().max().item()
+    print(f"kernel on cuda:1: max|d| vs plain {d:.3e}")
+    assert d <= 1e-4 * max(1.0, want.abs().max().item()), d
+
+    raw = encoders.init_encoder_tower(torch.Generator().manual_seed(0))
+    folded = _map_tensors(fold_params(raw, encoders.encoder_tower_spec()),
+                          lambda t: t.to(cards[0]))
+    onehot = np.eye(4, dtype=np.uint8)[rng.randint(0, 4, (1, 448_000))] * 4
+    seq = torch.from_numpy(onehot).to(cards[0])
+    want = encoders.apply_encoder_tower(folded, seq)
+    before = cc.fused_conv_chain.launches
+    got = sharded_encoder_tower(folded, seq, make_mesh((1, 2), devices=cards))
+    assert torch.cuda.current_device() == 0
+    assert cc.fused_conv_chain.launches > before
+    assert got.device == cards[0]
+    torch.cuda.synchronize(cards[1])
+    d = (got - want).abs().max().item()
+    print(f"tower over (cuda:0, cuda:1): max|d| vs one card {d:.3e}")
+    assert d <= 2.0e-6 * max(1.0, want.abs().max().item()), d

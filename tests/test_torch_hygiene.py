@@ -3,7 +3,9 @@ scripts import neither JAX nor anything of orca_tpu, the port's entry points
 (load_resources and the process_* pipelines included) run on CUDA unless the
 caller asks for the CPU, the prediction API and the plots import without
 matplotlib, and a 256 Mb bundle pickled by the JAX package loads into the
-port's class without it."""
+port's class without it. Every public name an `orca_tpu/**/__init__.py`
+binds exists on the matching orca_tpu_torch module, and `set_config`
+installs the configuration `get_config` returns."""
 
 import ast
 import os
@@ -48,8 +50,63 @@ def test_command_line_and_1m_family_are_checked_sources():
                 "models/convert.py", "training/stages.py", "training/loop.py",
                 "training/launch.py", "training/losses.py",
                 "training/optim.py", "training/swa.py", "utils/rng.py",
-                "utils/logging.py", "data/sampler.py", "data/pipeline.py"):
+                "utils/logging.py", "data/sampler.py", "data/pipeline.py",
+                "parallel/mesh.py", "parallel/sequence.py",
+                "utils/profiling.py"):
         assert PORT / rel in sources, rel
+
+
+def _bound_names(path):
+    """The public names an __init__.py's own statements bind."""
+    names = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.ImportFrom):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Import):
+            names.update(a.asname or a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    return sorted(n for n in names if not n.startswith("_"))
+
+
+JAX_INITS = sorted((REPO / "orca_tpu").rglob("__init__.py"))
+
+
+@pytest.mark.parametrize("path", JAX_INITS,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_has_every_public_reexport(path):
+    """A user who switches `import orca_tpu...` to `import
+    orca_tpu_torch...` finds every name the JAX package's __init__.py binds
+    (an empty __init__.py binds none, and needs no counterpart)."""
+    import importlib
+
+    names = _bound_names(path)
+    if not names:
+        return
+    rel = path.parent.relative_to(REPO / "orca_tpu")
+    module = importlib.import_module(".".join(("orca_tpu_torch",) + rel.parts))
+    assert [n for n in names if not hasattr(module, n)] == []
+
+
+def test_set_config_is_what_get_config_returns():
+    import dataclasses
+
+    from orca_tpu_torch import get_config, set_config, OrcaConfig
+
+    old = get_config()
+    try:
+        mine = OrcaConfig(param_dtype="bfloat16", encoder_halo_bp=116_000)
+        set_config(mine)
+        assert get_config() is mine
+        set_config(dataclasses.replace(mine, kernel_block_bp=2_000_000))
+        assert get_config().kernel_block_bp == 2_000_000
+        assert get_config().param_dtype == "bfloat16"
+    finally:
+        set_config(old)
+    assert get_config() is old
 
 
 def test_cli_help_runs_with_jax_blocked():
