@@ -135,8 +135,24 @@ Phases (any failure exits non-zero before the final line):
      <stage>` line each: seconds a step (first and rest), its frozen tower
      and trainable parts, host sampling, validate, save, restore, peak
      device memory, launches;
+ 10b. data-parallel training ("training_dp"): phase 10's stage-b job (its
+     seed, its stage-a run) as a multihost run of two processes started
+     here with torchrun's environment, each `cli.main(["train", "b", ...,
+     "--mesh", "data=2,seq=2"])` with gloo (nccl refuses two ranks on one
+     card) on a mesh row that names cuda:0 twice, so together they drive a
+     (2, 2) mesh: 2 steps at full geometry, no validation, a checkpoint at
+     step 2. Checked: both kernels at the sharded training rows' edge-shard
+     bounds against their plain versions; step 1's loss and per-level
+     losses within DP_LOSS_RTOL of phase 10's step 1; each rank's trainable
+     params equal after each step (digests, and max|d| 0 at the end);
+     launches a rank a step against the shards' group plan (6/36); rank 0
+     alone saved ckpt_2.pt and logged (one row), each rank wrote its
+     `.p<rank>` sidecar; the checkpoint restored in this process equal to
+     the writers' params. One `training_dp` line: seconds a step per rank,
+     the frozen tower, host sampling, the all-reduces' host seconds and
+     calls, launches, peak device memory per rank;
  11. one JSON line with every kernel (its launches summed over every request
-     of phases 4-9, the sharded phases and the training phase), then the
+     of phases 4-9, the sharded phases and the training phases), then the
      device line.
 """
 
@@ -496,18 +512,20 @@ def max_map_diff(got, want):
                for a, b in zip(got["predictions"][0], want["predictions"][0]))
 
 
-def shard_bound_kernels(torch, cc, enc_params, dtype):
+def shard_bound_kernels(torch, cc, enc_params, dtype,
+                        seg=BLOCK_BP + 2 * HALO_BP):
     """Each kernel against its plain version on one tower group at the
     bounds only a sharded tower gives it: row 0 is shard 0's first block
     (valid from 224 kb: the shard's halo and the block's are both past the
     sequence's start), row 1 the last shard's last block at (1, 2) of a
-    32 Mb window (valid up to 224 kb). Returns the largest max|d|."""
+    32 Mb window (valid up to 224 kb); `seg` is a block with its halos
+    (4.224 Mb inference pieces, 1.024 Mb training ones). Returns the
+    largest max|d|."""
     lp, cp = enc_params["lconv"], enc_params["conv"]
 
     def wb(u):
         return u["w"], u["b"]
 
-    seg = BLOCK_BP + 2 * HALO_BP
     codes = np.random.RandomState(SEED + 7).randint(0, 4, size=(2, seg))
     x = torch.from_numpy(np.eye(4, dtype=np.uint8)[codes] * 4).cuda()
     worst = 0.0
@@ -1852,7 +1870,7 @@ class TrainProbe:
 
 def _split_steps(events):
     """Per step: (seconds, frozen-tower seconds, host sampling seconds before
-    it, launches, loss); and the other events by kind."""
+    it, launches, loss, metrics); and the other events by kind."""
     steps, other = [], {}
     frozen = sample = 0.0
     for kind, secs, launched, out in events:
@@ -1862,7 +1880,8 @@ def _split_steps(events):
             sample += secs
         elif kind == "step":
             steps.append((secs, frozen, sample, launched,
-                          float(out[2]["loss"])))
+                          float(out[2]["loss"]),
+                          {k: float(v) for k, v in out[2].items()}))
             frozen = sample = 0.0
         else:
             other.setdefault(kind, []).append((secs, launched))
@@ -1873,7 +1892,7 @@ def _split_steps(events):
 def train_stage(torch, cli, probe, stage, job, tmp, runs):
     """One stage through the command line: 3 steps straight (timed), then 1
     step, then a resumed run to step 3 in another workdir. Returns the
-    launches of the three runs and the straight run's workdir."""
+    launches of the three runs and the straight run's step-1 metrics."""
     from orca_tpu_torch.nn.encoders import fused_group_count
     from orca_tpu_torch.utils.tree import tree_leaves
 
@@ -1918,6 +1937,7 @@ def train_stage(torch, cli, probe, stage, job, tmp, runs):
               f"{stage} {run}: launches a validation "
               f"{other.get('validate')} != {eval_launch}")
         if run == "straight":
+            step1 = steps[0][5]
             tr = probe.trainer
             params = getattr(tr, "params", None) or tr.trainable
             moved = any(not torch.equal(a, b) for a, b in zip(
@@ -1959,7 +1979,7 @@ def train_stage(torch, cli, probe, stage, job, tmp, runs):
     print(f"training {stage} resume: steps 2-3 resumed vs straight, max "
           f"relative loss difference {d:.3e}", flush=True)
     check(d <= 1e-5, f"{stage}: resumed losses differ by {d}")
-    return total
+    return total, step1
 
 
 class PinnedDraws:
@@ -2171,8 +2191,9 @@ def training_phase(torch, cc, peaks, sms):
     c: 256 Mb, all four levels, from a's and b's runs): 3 steps straight,
     then 1 step and a resumed run to step 3, all as the command line runs
     them. Before them, both kernels at the
-    1.024 Mb piece shape and one stage-b step on the card against the CPU.
-    Returns the fp32 launches of the phase (kernel checks aside)."""
+    1.024 Mb piece shape and one stage-b step on the card against the CPU;
+    after them, phase 10b (`training_dp_phase`). Returns the fp32 launches
+    of the phase (kernel checks aside), phase 10b's ranks' included."""
     import tempfile
 
     from orca_tpu_torch import cli
@@ -2197,7 +2218,7 @@ def training_phase(torch, cc, peaks, sms):
             print(f"training resources: 3 genomes through build-genome, dense"
                   f" stores, expectations, BED: "
                   f"{time.perf_counter() - t0:.1f} s", flush=True)
-            straight = {}
+            straight, step1 = {}, {}
             for stage in ("a", "b", "c"):
                 job = dict(jobs[stage])
                 if stage in ("b", "c"):
@@ -2208,12 +2229,236 @@ def training_phase(torch, cc, peaks, sms):
                 runs = {"straight": (straight[stage], 3),
                         "first": (os.path.join(tmp, f"resume_{stage}"), 1),
                         "resumed": (os.path.join(tmp, f"resume_{stage}"), 3)}
-                got = train_stage(torch, cli, probe, stage, job, tmp, runs)
+                got, step1[stage] = train_stage(torch, cli, probe, stage, job,
+                                                tmp, runs)
                 total[0] += got[0]
                 total[1] += got[1]
+            probe.reset()
+            got = training_dp_phase(torch, tower, tmp, jobs["b"],
+                                    straight["a"], step1["b"])
+            total[0] += got[0]
+            total[1] += got[1]
     finally:
         probe.remove()
     return {"fused_first_stage": total[0], "fused_conv_chain": total[1]}
+
+
+# Phase 10b: data-parallel training. Two processes share the one card, each
+# a (data, seq) mesh row that names cuda:0 twice, so together they drive a
+# (2, 2) mesh. nccl refuses two ranks on one card; gloo takes CUDA tensors.
+DP_WORLD = 2
+DP_SEQ = 2
+# step 1's loss and per-level losses against phase 10's one-process step 1,
+# relative: the parameters and the batch are the same, the BatchNorm
+# statistics are summed per rank, then over the ranks (fp32)
+DP_LOSS_RTOL = 1e-3
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _digest(tree):
+    import hashlib
+
+    from orca_tpu_torch.utils.tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def training_dp_rank(rank, cfg, outdir):
+    """One process of phase 10b (`chip_smoke.py --training-dp-rank ...`,
+    torchrun's environment set by the phase): `cli.main(["train", "b",
+    ...])` of a multihost job with mesh data=2,seq=2. Both processes are
+    local rank 0 of a one-card host whose local devices name cuda:0 twice.
+    Writes what it measured to <outdir>/rank<rank>.json and its final
+    trainable params to <outdir>/params<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from orca_tpu_torch import cli
+    from orca_tpu_torch.ops.kernels import conv_chain as cc
+    from orca_tpu_torch.parallel import mesh as mesh_lib
+    from orca_tpu_torch.parallel import multihost
+    from orca_tpu_torch.training import loop
+
+    mesh_lib.local_devices = lambda device_type="cuda": (
+        [torch.device("cuda", 0)] * DP_SEQ)
+    multihost.initialize(backend="gloo")
+    probe = TrainProbe(torch, cc)
+    allreduce = [0.0, 0]
+    saves, rows = [], []
+    all_reduce, save_state = dist.all_reduce, loop.save_state
+    log = loop.MetricsLogger.log
+
+    def timed_all_reduce(*a, **k):
+        t0 = time.perf_counter()
+        out = all_reduce(*a, **k)
+        allreduce[0] += time.perf_counter() - t0
+        allreduce[1] += 1
+        return out
+
+    def counted_save(*a, **k):
+        saves.append(a[1])
+        return save_state(*a, **k)
+
+    def counted_log(self, step, **metrics):
+        rec = log(self, step, **metrics)
+        if rec is not None:
+            rows.append(step)
+        return rec
+
+    dist.all_reduce, loop.save_state = timed_all_reduce, counted_save
+    loop.MetricsLogger.log = counted_log
+    reset_counters(cc)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    check(cli.main(["train", "b", "--config", cfg, "--max-steps", "2",
+                    "--mesh", f"data={DP_WORLD},seq={DP_SEQ}"]) == 0,
+          f"rank {rank}: train b")
+    wall = time.perf_counter() - t0
+    steps, other = _split_steps(probe.events)
+    events = [e for e in probe.events if e[0] == "step"]
+    torch.save(events[-1][3][0], os.path.join(outdir, f"params{rank}.pt"))
+    with open(os.path.join(outdir, f"rank{rank}.json"), "w") as f:
+        json.dump({
+            "rank": rank, "wall": wall,
+            "steps": [{"s": st[0], "frozen": st[1], "sample": st[2],
+                       "launches": list(st[3]), "metrics": st[5]}
+                      for st in steps],
+            "digests": [_digest(e[3][0]) for e in events],
+            "save_s": [v[0] for v in other.get("save", [])],
+            "allreduce_s": allreduce[0], "allreduce_n": allreduce[1],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": list(counters(cc).values()),
+            "saves": saves, "rows": rows,
+        }, f)
+    dist.destroy_process_group()
+
+
+def training_dp_phase(torch, tower, tmp, job_b, workdir_a, want1):
+    """Phase 10b: phase 10's stage-b job (same seed and initial state) as a
+    two-process data-parallel run at full geometry, each process's rows
+    through the frozen tower sharded over its row (800 kb blocks, 112 kb
+    halos), 2 steps, no validation, a checkpoint at step 2. Checked: both
+    kernels at the sharded training rows' edge-shard bounds against their
+    plain versions; step 1's losses against phase 10's (DP_LOSS_RTOL); every
+    rank's trainable params equal after each step; launches a rank a step
+    against the shards' group plan; rank 0 alone saved ckpt_2.pt and logged
+    (one row, step 2), each rank its sidecar; the checkpoint restored in
+    this process equal to the writers' params. Returns the ranks' launches
+    (the path's, not the kernel checks')."""
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.ops.kernels import conv_chain as cc
+    from orca_tpu_torch.training import launch
+    from orca_tpu_torch.utils.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    worst = shard_bound_kernels(torch, cc, tower, torch.float32,
+                                seg=TRAIN_PIECE_BP)
+    rows = job_b["accumulate"] // DP_WORLD
+    shard_bp = 32_000_000 // DP_SEQ + 2 * HALO_BP
+    groups = DP_SEQ * fused_group_count(rows, shard_bp, TRAIN_BLOCK_BP)
+    plan = [groups, 6 * groups]
+    workdir = os.path.join(tmp, "run_b_dp")
+    cfg = os.path.join(tmp, "job_b_dp.json")
+    with open(cfg, "w") as f:
+        json.dump(dict(job_b, workdir=workdir, init_workdir_a=workdir_a,
+                       checkpoint_every=2, validate_every=1000,
+                       multihost=True), f)
+    outdir = os.path.join(tmp, "dp_out")
+    os.makedirs(outdir)
+    torch.cuda.empty_cache()
+    port = str(_free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--training-dp-rank",
+         str(r), cfg, outdir],
+        env=dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=port,
+                 WORLD_SIZE=str(DP_WORLD), RANK=str(r), LOCAL_RANK="0"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for r in range(DP_WORLD)]
+    try:
+        outs = [p.communicate(timeout=600)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"training_dp rank {r} exited "
+              f"{p.returncode}: {out[-3000:]}")
+    got = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(outdir, f"rank{r}.json")) as f:
+            got.append(json.load(f))
+    rel = {k: abs(got[0]["steps"][0]["metrics"][k] - v) / abs(v)
+           for k, v in want1.items()}
+    check(max(rel.values()) <= DP_LOSS_RTOL,
+          f"training_dp: step 1 against phase 10's: {rel}")
+    check(all(g["steps"][0]["metrics"] == got[0]["steps"][0]["metrics"]
+              for g in got), "training_dp: the ranks' step-1 metrics differ")
+    check(all(g["digests"] == got[0]["digests"] for g in got)
+          and len(got[0]["digests"]) == 2,
+          "training_dp: the ranks' params differ after a step")
+    params = [torch.load(os.path.join(outdir, f"params{r}.pt"),
+                         map_location="cuda", weights_only=True)
+              for r in range(DP_WORLD)]
+    d_ranks = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(params[0]), tree_leaves(params[1])))
+    check(d_ranks == 0, f"training_dp: params max|d| {d_ranks} across ranks")
+    for g in got:
+        check(all(st["launches"] == plan for st in g["steps"]),
+              f"training_dp rank {g['rank']}: launches a step "
+              f"{[st['launches'] for st in g['steps']]} != {plan}")
+    files = sorted(os.listdir(workdir))
+    want_files = sorted(["ckpt_2.pt", "stage_b.metrics.jsonl"]
+                        + [f"ckpt_2.host.p{r}.json" for r in range(DP_WORLD)])
+    check(files == want_files, f"training_dp: files {files}")
+    check(got[0]["saves"] == [2] and got[0]["rows"] == [2]
+          and all(g["saves"] == [] and g["rows"] == [] for g in got[1:]),
+          f"training_dp: saves {[g['saves'] for g in got]}, rows logged "
+          f"{[g['rows'] for g in got]}")
+    with open(os.path.join(workdir, "stage_b.metrics.jsonl")) as f:
+        logged = [json.loads(line)["step"] for line in f]
+    check(logged == [2], f"training_dp: metrics rows {logged}")
+    tr = launch.make_trainer(launch.TrainJob.from_json(cfg, stage="b",
+                                                       multihost=False))
+    check(tr.try_restore() and tr.step == 2, "training_dp: no restore")
+    d_restore = max((a - b).abs().max().item() for a, b in zip(
+        tree_leaves(tr.trainable), tree_leaves(params[0])))
+    check(d_restore == 0, f"training_dp: restored params max|d| {d_restore}")
+    del tr, params
+    secs = time.perf_counter() - t_phase
+    print(f"training_dp: {DP_WORLD} processes (gloo) on one card, a "
+          f"({DP_WORLD}, {DP_SEQ}) mesh naming cuda:0 {DP_WORLD * DP_SEQ} "
+          f"times, stage b at 32 Mb, {job_b['accumulate']} windows a step; "
+          "seconds a step per rank "
+          f"{[[round(st['s'], 3) for st in g['steps']] for g in got]}, "
+          "frozen tower "
+          f"{[[round(st['frozen'], 3) for st in g['steps']] for g in got]},"
+          " host sampling "
+          f"{[[round(st['sample'], 3) for st in g['steps']] for g in got]};"
+          " all-reduce host s (calls) "
+          f"{[(round(g['allreduce_s'], 3), g['allreduce_n']) for g in got]};"
+          f" save {[round(x, 3) for x in got[0]['save_s']]} s; launches a "
+          f"step per rank {[g['steps'][0]['launches'] for g in got]} "
+          f"(plan {plan}), in all {[g['launches'] for g in got]}; peak "
+          f"device memory per rank "
+          f"{[round(g['peak_gib'], 2) for g in got]} GiB; step 1 vs phase "
+          f"10 relative {max(rel.values()):.3e} (loss "
+          f"{got[0]['steps'][0]['metrics']['loss']:.6f} vs "
+          f"{want1['loss']:.6f}); params across ranks max|d| {d_ranks}; "
+          f"restored max|d| {d_restore}; kernels at the edge-shard bounds "
+          f"max|d| {worst:.3e}; ranks' wall "
+          f"{[round(g['wall'], 1) for g in got]} s; phase {secs:.1f} s",
+          flush=True)
+    return [sum(g["launches"][i] for g in got) for i in range(2)]
 
 
 def tree_cuda(torch, tree):
@@ -2607,6 +2852,9 @@ def main() -> int:
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:2] == ["--training-dp-rank"]:
+            training_dp_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+            sys.exit(0)
         sys.exit(main())
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -155,8 +155,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--workers", type=int, default=None,
                    help="prefetch loader workers")
     p.add_argument("--mesh", default=None,
-                   help="device mesh, e.g. 'data=4,seq=2' (not ported yet: "
-                   "ROADMAP A16)")
+                   help="device mesh, e.g. 'data=4,seq=2'")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--no-resume", action="store_true")
 
@@ -307,15 +306,13 @@ def main(argv=None):
 
 
 def _train(args, parser) -> int:
-    """The JAX package's `train` action on the CUDA card: the TrainJob JSON
-    with the flags as overrides, then `training.launch.run`."""
+    """The JAX package's `train` action on the CUDA cards: the TrainJob JSON
+    with the flags as overrides, then `training.launch.run` (which starts
+    one process per 'data' index of a mesh)."""
     import torch
 
-    from orca_tpu_torch.training.launch import TrainJob, build_mesh, run
+    from orca_tpu_torch.training.launch import TrainJob, mesh_sizes, run
 
-    if args.mesh:
-        parser.error("--mesh trains across several devices, which is not "
-                     "ported yet (ROADMAP A16)")
     if not torch.cuda.is_available():
         parser.error("CUDA is not available: training runs on the CUDA card")
     job = TrainJob.from_json(
@@ -326,10 +323,11 @@ def _train(args, parser) -> int:
         use_swa=args.swa,
         num_workers=args.workers,
         seed=args.seed,
+        mesh=args.mesh,
     )
     try:
-        build_mesh(job)
-    except NotImplementedError as e:
+        mesh_sizes(job)
+    except ValueError as e:
         parser.error(f"{args.config}: {e}")
     if args.no_resume:
         job.resume = False

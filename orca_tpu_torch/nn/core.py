@@ -105,10 +105,15 @@ class BNUpdates:
     """Collects training-mode BatchNorm running-statistic updates of a
     forward, keyed by the unit's path in the parameter tree ("<block
     path>/<unit index>"); `merge_bn_updates` writes them back after the
-    step. Momentum 0.1, from the unbiased batch variance (torch's rule)."""
+    step. Momentum 0.1, from the unbiased batch variance (torch's rule).
 
-    def __init__(self, momentum: float = 0.1):
+    group: the forward's data-parallel group (parallel.multihost.DataGroup)
+    or None for one process; with a group, batch statistics and dropout
+    masks are the global batch's."""
+
+    def __init__(self, momentum: float = 0.1, group=None):
         self.momentum = momentum
+        self.group = group
         self.updates = {}  # path -> (new running mean, new running var)
 
     def record(self, path, mean, var_unbiased):
@@ -150,11 +155,22 @@ def apply_unit(params: dict, unit: Unit, x: torch.Tensor, *,
                ) -> torch.Tensor:
     """dropout (train) -> conv -> BN -> ReLU/sigmoid. In training mode the
     dropout mask is drawn from `rng`: a pure function of the key, so a
-    forward recomputed under torch.utils.checkpoint draws it again equal."""
+    forward recomputed under torch.utils.checkpoint draws it again equal.
+    Over a data-parallel group (`bn_updates.group`) the mask is drawn at the
+    global batch's shape and this rank keeps its rows: the one-process
+    step's mask, sliced."""
+    group = bn_updates.group if bn_updates is not None else None
     if unit.dropout > 0.0 and train:
         if rng is None:
             raise ValueError("dropout in train mode requires an rng")
-        mask = rng_lib.bernoulli(rng, 1.0 - unit.dropout, x.shape, x.device)
+        if group is None:
+            mask = rng_lib.bernoulli(rng, 1.0 - unit.dropout, x.shape,
+                                     x.device)
+        else:
+            n = x.shape[0]
+            mask = rng_lib.bernoulli(
+                rng, 1.0 - unit.dropout, (n * group.world,) + x.shape[1:],
+                x.device)[group.rank * n:(group.rank + 1) * n]
         x = nn_ops.dropout(x, unit.dropout, mask)
     conv = nn_ops.conv1d if unit.dim == 1 else nn_ops.conv2d
     x = conv(x, params["w"], params["b"], dilation=unit.dilation)
@@ -162,7 +178,7 @@ def apply_unit(params: dict, unit: Unit, x: torch.Tensor, *,
         bn = params["bn"]
         if train:
             x, bmean, _bvar, bvar_u = nn_ops.batchnorm_train(
-                x, bn["scale"], bn["bias"])
+                x, bn["scale"], bn["bias"], group=group)
             if bn_updates is not None:
                 m = bn_updates.momentum
                 bn_updates.record(

@@ -131,7 +131,7 @@ def apply_decoder(params: dict, x: torch.Tensor, distenc: torch.Tensor,
     if train and remat_blocks:
         def block(p, b, cur, bpath):
             def f(cur):
-                local = BNUpdates()
+                local = BNUpdates(group=getattr(bn_updates, "group", None))
                 out = apply_block(p, b, cur, train=True, rng=rng,
                                   bn_updates=local, path=bpath)
                 return out, local.updates
@@ -281,14 +281,14 @@ def apply_net(params: dict, x: torch.Tensor, *, num_1d: Optional[int] = None,
         x, params["encoder"]["lconv"][0][0]["w"].dtype)
 
     def run_encoder(x):
-        local = BNUpdates()
+        local = BNUpdates(group=getattr(bn_updates, "group", None))
         out = encoders.apply_encoder_stages(params["encoder"], x, train=True,
                                             rng=rng, bn_updates=local,
                                             path="encoder")
         return out, local.updates
 
     def run_decoder(mat):
-        local = BNUpdates()
+        local = BNUpdates(group=getattr(bn_updates, "group", None))
         out = apply_decoder1m_mat(params["decoder"], mat, num_2d=num_2d,
                                   train=True, rng=rng, bn_updates=local,
                                   path="decoder")

@@ -99,18 +99,31 @@ def batchnorm(x, scale, bias, mean, var, eps: float = BN_EPS):
     return x * inv + (bias - mean * inv)
 
 
-def batchnorm_train(x: torch.Tensor, scale, bias, eps: float = BN_EPS):
+def batchnorm_train(x: torch.Tensor, scale, bias, eps: float = BN_EPS,
+                    group=None):
     """Training-mode BatchNorm over all axes but the last.
 
     Returns (y, batch_mean, batch_var_biased, batch_var_unbiased): y is
     normalised with the biased variance (torch semantics), the caller updates
     the running statistics with the unbiased one. The variance takes two
     passes, E[(x - mean)^2], as the JAX package does: E[x^2] - E[x]^2 cancels
-    catastrophically where |mean| >> std."""
+    catastrophically where |mean| >> std.
+
+    group: a parallel.multihost.DataGroup whose ranks hold equal shares of
+    the batch; the statistics are then the global batch's, each pass's sum
+    all-reduced by a differentiable collective (so the gradient is the
+    one-process step's). Under torch.utils.checkpoint the recompute in the
+    backward calls these collectives again; every rank recomputes the same
+    units in the same order, so they pair up."""
     dims = tuple(range(x.dim() - 1))
-    mean = x.mean(dim=dims)
-    var = (x - mean).square().mean(dim=dims)
     n = x.numel() // x.shape[-1]
+    if group is None:
+        mean = x.mean(dim=dims)
+        var = (x - mean).square().mean(dim=dims)
+    else:
+        n *= group.world
+        mean = group.sum(x.sum(dim=dims)) / n
+        var = group.sum((x - mean).square().sum(dim=dims)) / n
     var_unbiased = var * (n / max(n - 1, 1))
     inv = torch.rsqrt(var + eps) * scale
     y = x * inv + (bias - mean * inv)

@@ -10,6 +10,11 @@ A grid may name one device more than once: `[torch.device("cpu")] * 4` runs
 a (1, 4) mesh on the CPU, `[cuda:0] * 2` a (1, 2) mesh on one card. Such a
 mesh computes what a mesh of distinct cards computes, one shard after
 another.
+
+A training mesh's 'data' axis may span processes
+(parallel.multihost.make_multihost_mesh): this process then holds one row
+of the grid, and the mesh's `data_group` (the process group, its world
+size and this rank) joins the rows.
 """
 
 from __future__ import annotations
@@ -29,17 +34,28 @@ class Mesh:
 
     param_copies: parameter trees copied to the mesh's devices, keyed by
     (id(tree), device); each entry holds its tree, so the id is not reused
-    while the mesh lives (filled by parallel.sequence)."""
+    while the mesh lives (filled by parallel.sequence).
+    data_group: None for a mesh of this process alone; else the
+    multihost.DataGroup whose ranks each hold one row, and the first axis
+    counts the rows of every rank."""
 
     devices: Tuple[Tuple[torch.device, ...], ...]
     axis_names: Tuple[str, str]
     param_copies: dict = dataclasses.field(default_factory=dict,
                                            compare=False, repr=False)
+    data_group: Optional[object] = dataclasses.field(default=None,
+                                                     compare=False)
 
     @property
     def shape(self) -> Dict[str, int]:
+        world = self.data_group.world if self.data_group is not None else 1
         return dict(zip(self.axis_names,
-                        (len(self.devices), len(self.devices[0]))))
+                        (world * len(self.devices), len(self.devices[0]))))
+
+    def local(self) -> "Mesh":
+        """The rows this process drives, as a mesh of its own (sharing its
+        parameter copies)."""
+        return dataclasses.replace(self, data_group=None)
 
     def device(self, **index: int) -> torch.device:
         """The device at the given index of each named axis (0 for an axis

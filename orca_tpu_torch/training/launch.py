@@ -14,6 +14,13 @@ says. Stages b and c start from a stage-a (and stage-b) run of this package
 (`ckpt_<step>.pt` in its workdir) or from the reference's released
 statedicts; the JAX package's orbax workdirs are not read.
 
+Across devices (`mesh`, e.g. "data=2,seq=2"): the 'data' axis is one
+process per index, each driving 'seq' devices. `run` starts the N
+processes of a one-process job itself, as torchrun would (devices
+cuda:[r·seq, (r+1)·seq) for process r, a localhost rendezvous); a job with
+`multihost: true` is one process of a run started by torchrun. Batch counts
+(batch_size, accumulate) stay global and must divide over the processes.
+
 | stage | window | target res | pos res | shift | strand | cross-chrom |
 |-------|--------|-----------|---------|-------|--------|-------------|
 | a     | 1Mb    | 1000      | 1000    | 100   | no     | no          |
@@ -101,10 +108,13 @@ class TrainJob:
     # cascade level subset for scaled test runs (stage b: any subset of
     # (32,16,8,4,2,1); stage c: a prefix of (256,128,64,32))
     levels: Optional[Tuple[int, ...]] = None
-    # a device mesh (e.g. "data=4,seq=2") or a multi-host run: kept from the
-    # JAX package's job files, not ported yet (ROADMAP A16); "" / False =
-    # one device
-    mesh: str = ""
+    mesh: str = ""  # e.g. "data=4,seq=2"; "" = single device
+    # one process of a multi-process run started by torchrun (its
+    # environment names the rendezvous); the mesh spec's seq=M is then the
+    # devices per process, and 'data' spans the processes. Samplers stay
+    # identically seeded on every process: each draws the same GLOBAL batch
+    # and multihost.shard_batch keeps only its rows, so an N-process run
+    # computes the single-process run's steps
     multihost: bool = False
     packed_sequence: bool = True  # uint8 wire format through the loader
     # stage-b Encoder2 upward pass; False for leukemia-style models
@@ -243,11 +253,9 @@ def build_sampler(job: TrainJob):
     return RandomWindowSampler(**kw)
 
 
-def build_mesh(job: TrainJob):
-    """None for one device. A mesh spec is checked for unknown axes, then
-    refused: training across devices is ROADMAP A16."""
-    if not job.mesh and not job.multihost:
-        return None
+def mesh_sizes(job: TrainJob) -> dict:
+    """The job's mesh spec as {"data": N, "seq": M} (absent axes 1); a
+    typo'd axis raises rather than shrinking the mesh."""
     sizes = dict(part.split("=")
                  for part in job.mesh.replace(" ", "").split(",") if part)
     unknown = set(sizes) - {"data", "seq"}
@@ -256,18 +264,59 @@ def build_mesh(job: TrainJob):
             f"unknown mesh axes {sorted(unknown)} in {job.mesh!r} "
             "(expected 'data=N,seq=M')"
         )
-    raise NotImplementedError(
-        "training over a device mesh or several hosts is not ported to "
-        "orca_tpu_torch yet (ROADMAP A16); the port trains on one device")
+    return {axis: int(sizes.get(axis, 1)) for axis in ("data", "seq")}
 
 
-def _loop_config(job: TrainJob):
+def build_mesh(job: TrainJob, device=None):
+    """None for one device. With `multihost`, join the process group
+    (torchrun's environment; gloo on the CPU, nccl on CUDA) and return this
+    process's row of a mesh whose 'data' axis is the processes. Otherwise a
+    one-process (1, seq) mesh over the local devices (the CPU named seq
+    times); a 'data' axis of N > 1 needs N processes, which `run` starts."""
+    sizes = mesh_sizes(job)
+    if not job.mesh and not job.multihost:
+        return None
+    device = resolve_device(device)
+    from orca_tpu_torch.parallel import mesh as mesh_lib
+    from orca_tpu_torch.parallel import multihost
+
+    if job.multihost:
+        multihost.initialize(backend="gloo" if device.type == "cpu" else None)
+        world = multihost.process_count()
+        if "data=" in job.mesh.replace(" ", "") and sizes["data"] != world:
+            raise ValueError(f"the mesh {job.mesh!r} names data="
+                             f"{sizes['data']}, the run has {world} processes")
+        return multihost.make_multihost_mesh(sizes["seq"],
+                                             device_type=device.type)
+    if sizes["data"] > 1:
+        raise ValueError(
+            f"the mesh {job.mesh!r} spans {sizes['data']} processes: "
+            "training.launch.run starts them (or torchrun, with multihost)")
+    if device.type == "cpu":
+        devices = [device] * sizes["seq"]
+    else:
+        devices = mesh_lib.local_devices()
+    return mesh_lib.make_mesh((1, sizes["seq"]), devices=devices)
+
+
+def _per_process(n: int, world: int) -> int:
+    """A global batch or accumulate count checked against the processes of
+    a data-parallel run. The count stays GLOBAL: every process samples the
+    same global batch and keeps its share, which divisibility is for."""
+    if n % world:
+        raise ValueError(f"global batch/accumulate {n} must divide the "
+                         f"{world} processes of a data-parallel run")
+    return n
+
+
+def _loop_config(job: TrainJob, world: int = 1):
     from orca_tpu_torch.training.loop import LoopConfig
 
     return LoopConfig(
         workdir=job.workdir,
         lr=job.lr,
-        batch_size=job.batch_size,
+        batch_size=(_per_process(job.batch_size, world) if job.stage == "a"
+                    else job.batch_size),
         checkpoint_every=job.checkpoint_every,
         validate_every=job.validate_every,
         val_batches=job.val_batches,
@@ -353,18 +402,20 @@ def _normmats_for_levels(expected_log, levels, bins, crop):
 
 
 def make_trainer(job: TrainJob, device=None):
-    """The stage's trainer on `device` (None = CUDA)."""
+    """The stage's trainer on `device` (None = CUDA), over the job's mesh
+    (its state then on the first device of this process's row)."""
     if job.stage not in _STAGE_DEFAULTS:
         raise ValueError(f"unknown stage {job.stage!r} (a|b|c)")
-    build_mesh(job)
-    device = resolve_device(device)
+    mesh = build_mesh(job, device)
+    device = mesh.device() if mesh is not None else resolve_device(device)
+    world = mesh.shape["data"] if mesh is not None else 1
     os.makedirs(job.workdir, exist_ok=True)
     return {"a": _make_stage_a, "b": _make_stage_b, "c": _make_stage_c}[
         job.stage
-    ](job, device)
+    ](job, device, mesh, world)
 
 
-def _make_stage_a(job: TrainJob, device):
+def _make_stage_a(job: TrainJob, device, mesh=None, world=1):
     from orca_tpu_torch.training.loop import StageATrainer
     from orca_tpu_torch.training.stages import StageAConfig
 
@@ -396,9 +447,9 @@ def _make_stage_a(job: TrainJob, device):
         mats.append(normmat.reshape(crop, f, crop, f).mean(axis=(1, 3)))
     normmat_r = np.stack(mats) if num_2d > 1 else mats[0]
     return StageATrainer(
-        cfg, _loop_config(job), sampler,
+        cfg, _loop_config(job, world), sampler,
         normmat_r.astype(np.float32), eps=float(normmat_r.min()),
-        device=device,
+        mesh=mesh, device=device,
     )
 
 
@@ -410,7 +461,7 @@ def _stage_b_levels_geom(window_bp):
     return (32, 16, 8, 4, 2, 1), geom
 
 
-def _make_stage_b(job: TrainJob, device):
+def _make_stage_b(job: TrainJob, device, mesh=None, world=1):
     from orca_tpu_torch.nn import decoders, encoders
     from orca_tpu_torch.nn.core import fold_params
     from orca_tpu_torch.training.loop import StageBTrainer
@@ -474,12 +525,13 @@ def _make_stage_b(job: TrainJob, device):
         nm = np.stack([normmats[lv].astype(np.float32) for lv in levels])
         ep = np.array([epss[lv] for lv in levels], np.float32)
     return StageBTrainer(
-        cfg, _loop_config(job), sampler, trainable, frozen, nm, ep,
-        accumulate=job.accumulate, device=device,
+        cfg, _loop_config(job, world), sampler, trainable, frozen, nm, ep,
+        accumulate=_per_process(job.accumulate, world), mesh=mesh,
+        device=device,
     )
 
 
-def _make_stage_c(job: TrainJob, device):
+def _make_stage_c(job: TrainJob, device, mesh=None, world=1):
     from orca_tpu_torch.nn import decoders, encoders
     from orca_tpu_torch.nn.core import fold_params
     from orca_tpu_torch.predict.multiscale import CascadeGeometry
@@ -516,16 +568,97 @@ def _make_stage_c(job: TrainJob, device):
         "decoders": {lv: decoders.init_decoder(gen) for lv in levels},
     }
     return StageCTrainer(
-        cfg, _loop_config(job), sampler, trainable, frozen,
-        accumulate=job.accumulate, device=device,
+        cfg, _loop_config(job, world), sampler, trainable, frozen,
+        accumulate=_per_process(job.accumulate, world), mesh=mesh,
+        device=device,
     )
 
 
 def run(job: TrainJob, device=None):
     """Assemble and run a training job on `device` (None = CUDA); resumes
-    from the latest checkpoint in workdir when resume=True."""
+    from the latest checkpoint in workdir when resume=True. A job whose
+    mesh has data=N > 1 and no `multihost` runs as N processes started
+    here; the result is process 0's."""
+    data = mesh_sizes(job)["data"]
+    if data > 1 and not job.multihost:
+        return _spawn(job, device, data)
     trainer = make_trainer(job, device)
     if job.resume and trainer.try_restore():
         print(f"resumed from step {trainer.step} in {job.workdir}",
               flush=True)
     return trainer.run()
+
+
+# --------------------------------------------------------------------------
+# One command, N processes (what torchrun does for a multihost job)
+# --------------------------------------------------------------------------
+
+
+def _spawn(job: TrainJob, device, world: int):
+    """Run `job` as `world` local processes of one data-parallel run, each
+    with its slice of the devices and a localhost rendezvous; returns
+    process 0's metrics. Raises when a process fails (the others are
+    stopped) and, before starting any, when the host has too few CUDA
+    devices or the batch does not divide."""
+    import multiprocessing
+    import socket
+    from multiprocessing.connection import wait
+
+    device = resolve_device(device)
+    seq = mesh_sizes(job)["seq"]
+    _per_process(job.batch_size if job.stage == "a" else job.accumulate,
+                 world)
+    if device.type == "cuda":
+        n = torch.cuda.device_count()
+        if world * seq > n:
+            raise ValueError(f"{(world, seq)} needs {world * seq} devices, "
+                             f"have {n}")
+        # build the kernels once here, not in every process at once
+        from orca_tpu_torch.ops.kernels import build
+
+        build.build(["conv_chain"])
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_worker,
+                         args=(rank, world, port, job, device, results))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    try:
+        running = list(procs)
+        while running:
+            for sentinel in wait([p.sentinel for p in running]):
+                p = next(q for q in running if q.sentinel == sentinel)
+                p.join()
+                running.remove(p)
+                if p.exitcode != 0:
+                    raise RuntimeError(
+                        f"training process {procs.index(p)} of {world} "
+                        f"exited with code {p.exitcode}")
+        return results.get(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join()
+
+
+def _worker(rank: int, world: int, port: int, job: TrainJob, device,
+            results) -> None:
+    """One process of `_spawn`: torchrun's environment, then the job as one
+    process of a multihost run."""
+    import torch.distributed as dist
+
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                      WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank))
+    try:
+        metrics = run(dataclasses.replace(job, multihost=True), device)
+        if rank == 0:
+            results.put({k: float(v) for k, v in (metrics or {}).items()})
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

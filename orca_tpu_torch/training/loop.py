@@ -2,7 +2,9 @@
 orca_tpu/training/loop.py). Each stage's Trainer has:
 
   * a sampler-backed input pipeline (data.sampler, data.pipeline);
-  * the stage step (training.stages) on one device;
+  * the stage step (training.stages) on one device, or data-parallel over
+    the processes of a mesh (parallel.multihost), whose row of devices may
+    also shard the frozen tower's sequence;
   * checkpoints with the full state (params, optimizer, SWA, step, learning
     rate, step key) as `ckpt_<step>.pt` (`torch.save`, loadable with
     weights_only=True), beside a JSON sidecar for the host state (plateau
@@ -13,7 +15,13 @@ orca_tpu/training/loop.py). Each stage's Trainer has:
 The random state of the steps is one key (utils.rng), saved in the
 checkpoint, so a killed-and-resumed run with synchronous sampling replays
 the losses of an unkilled one. The JAX package's orbax checkpoints are not
-read. A device mesh is not ported yet (ROADMAP A16).
+read.
+
+Over a mesh whose 'data' axis spans N processes, every process samples the
+same global batch and keeps its rows (multihost.shard_batch); the state
+starts as rank 0's and stays bit-identical on every rank, which `save`
+checks before rank 0 writes the checkpoint; each rank writes its own host
+sidecar (`.p<rank>`), and only rank 0 logs.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ import torch
 
 from orca_tpu_torch.nn import decoders
 from orca_tpu_torch.nn.core import fold_params
+from orca_tpu_torch.parallel import multihost
 from orca_tpu_torch.training import optim
 from orca_tpu_torch.training import swa as swa_lib
 from orca_tpu_torch.training.stages import (
@@ -66,13 +75,6 @@ class LoopConfig:
     loader_backend: str = "process"
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "training over a device mesh is not ported to orca_tpu_torch yet "
-            "(ROADMAP A16); the port trains on one device")
-
-
 def save_state(workdir: str, step: int, state: dict) -> None:
     """Write `state` (tensors, ints, floats, dicts, lists) as
     <workdir>/ckpt_<step>.pt, atomically."""
@@ -101,7 +103,13 @@ def restore_state(workdir: str, device=None) -> Optional[dict]:
 
 
 def _host_state_path(workdir: str, step: int) -> str:
-    return os.path.join(os.path.abspath(workdir), f"ckpt_{step}.host.json")
+    # one file per process on multi-process runs, so no two processes write
+    # one file; under global-batch semantics the sampler state is the same
+    # on every process, so any one sidecar restores the run
+    suffix = ("" if multihost.process_count() == 1
+              else f".p{multihost.process_index()}")
+    return os.path.join(os.path.abspath(workdir),
+                        f"ckpt_{step}.host{suffix}.json")
 
 
 def save_host_state(workdir: str, step: int, payload: dict) -> None:
@@ -136,28 +144,76 @@ def _restore_sampler_rng(sampler, state: Optional[dict]) -> None:
         bg.state = state
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _mesh_encoder_fn(mesh, block_bp):
+    """The frozen tower's call for a mesh whose 'seq' axis has more than one
+    device: this process's rows, sequence-sharded over its row of devices
+    (parallel.sequence). None (the one-device tower) otherwise."""
+    if mesh is None or mesh.shape.get("seq", 1) <= 1:
+        return None
+    from orca_tpu_torch.parallel.sequence import sharded_encoder_tower
+
+    row = mesh.local()
+
+    def encoder_fn(p, s):
+        return sharded_encoder_tower(p, s, row, block_bp=block_bp)
+
+    return encoder_fn
 
 
 class _Trainer:
-    """What every stage's trainer shares: the device, batch placement,
-    checkpoint writing and the host state."""
+    """What every stage's trainer shares: the device and the mesh, batch
+    placement, state replication, checkpoint writing and the host state."""
+
+    def _setup_mesh(self, mesh, device):
+        """self.mesh, self.group (its data group, None for one process) and
+        self.device: the first device of the mesh's row, which holds the
+        state and the batches, else `device` (None = CUDA)."""
+        device = resolve_device(device)
+        self.mesh = mesh
+        self.group = mesh.data_group if mesh is not None else None
+        if mesh is None:
+            self.device = device
+            return
+        if len(mesh.devices) != 1:
+            raise ValueError(
+                f"a trainer drives one row of its mesh, not {mesh.shape}: "
+                "a 'data' axis of N spans N processes (training.launch "
+                "starts them)")
+        self.device = mesh.device()
+        if self.device.type != device.type:
+            raise ValueError(f"the mesh is on {self.device}, the trainer "
+                             f"was asked for {device}")
 
     def _place(self, *arrays):
+        if self.mesh is not None:
+            return multihost.shard_batch(self.mesh, *arrays)
         out = tuple(torch.as_tensor(np.ascontiguousarray(a)).to(self.device)
                     for a in arrays)
         return out if len(out) > 1 else out[0]
+
+    def _replicate(self, tree):
+        """Rank 0's tree on every rank (unchanged without a group)."""
+        if self.group is None:
+            return tree
+        return self.group.broadcast_tree(tree)
 
     def _state(self) -> dict:
         raise NotImplementedError
 
     def save(self):
-        save_state(self.loop.workdir, self.step, self._state())
+        """Rank 0 writes the checkpoint, after checking that every rank
+        holds the same state; every rank writes its host sidecar."""
+        state = self._state()
+        if self.group is not None:
+            self.group.check_replicas(state, f"the states at step {self.step}")
+        if multihost.is_primary():
+            save_state(self.loop.workdir, self.step, state)
         save_host_state(self.loop.workdir, self.step, {
             "sched": self.scheduler.state_dict(),
             "sampler_rng": _sampler_rng_state(self.sampler),
         })
+        if self.group is not None:
+            self.group.barrier()
 
     def _restore(self) -> Optional[dict]:
         """Load the latest checkpoint's common state (step, learning rate,
@@ -181,24 +237,28 @@ class StageATrainer(_Trainer):
     def __init__(self, cfg: StageAConfig, loop: LoopConfig, sampler,
                  normmat_r: np.ndarray, eps: float,
                  params: Optional[dict] = None, mesh=None, device=None):
-        """device: None = CUDA; mesh must be None (one device)."""
-        _no_mesh(mesh)
-        self.device = resolve_device(device)
+        """device: None = CUDA. mesh: None for one device, else a mesh of
+        one row of devices in this process (parallel.mesh.make_mesh, or
+        multihost.make_multihost_mesh when its 'data' axis spans
+        processes): batches are placed data-parallel, the state starts as
+        rank 0's."""
+        self._setup_mesh(mesh, device)
         self.cfg = cfg
         self.loop = loop
         self.sampler = sampler
         self.normmat_r = torch.as_tensor(normmat_r, dtype=torch.float32,
                                          device=self.device)
         self.eps = float(eps)
-        self.opt, self.step_fn = make_stage_a_step(cfg, self.device)
+        self.opt, self.step_fn = make_stage_a_step(cfg, self.device,
+                                                   group=self.group)
         gen = torch.Generator(device=self.device).manual_seed(loop.seed)
-        self.params = params or decoders.init_net(
-            gen, num_1d=cfg.num_1d, num_2d=getattr(cfg, "num_2d", 1))
+        self.params = self._replicate(params or decoders.init_net(
+            gen, num_1d=cfg.num_1d, num_2d=getattr(cfg, "num_2d", 1)))
         self.opt_state = self.opt.init(self.params)
         self.swa_state = (swa_lib.swa_init(self.params) if loop.use_swa
                           else None)
-        self.bn_refresh = (swa_lib.make_swa_bn_refresh(cfg) if loop.use_swa
-                           else None)
+        self.bn_refresh = (swa_lib.make_swa_bn_refresh(cfg, self.group)
+                           if loop.use_swa else None)
         self.scheduler = optim.ReduceLROnPlateau(lr=loop.lr)
         self.step = 0
         self.logger = MetricsLogger(loop.workdir, "stage_a")
@@ -288,8 +348,8 @@ class StageATrainer(_Trainer):
                 batch[0], batch[1], self._target_1d(batch))
             corr, _mse, _bce = stage_a_eval_metrics(
                 folded, self.cfg, seq_d, target_d, target_1d_d,
-                self.normmat_r, self.eps)
-            corrs.append(_to_host(corr))
+                self.normmat_r, self.eps, group=self.group)
+            corrs.append(multihost.fetch_global(corr, self.mesh))
         return float(np.nanmean(np.concatenate(corrs)))
 
 
@@ -301,15 +361,19 @@ class StageBTrainer(_Trainer):
                  trainable: dict, frozen: dict, normmats: np.ndarray,
                  epss: np.ndarray, nan_skip: float = 0.5,
                  accumulate: int = 4, mesh=None, device=None):
-        """device: None = CUDA; mesh must be None (one device)."""
-        _no_mesh(mesh)
-        self.device = resolve_device(device)
+        """device, mesh: as for StageATrainer; a mesh whose 'seq' axis has
+        more than one device also shards the frozen tower's sequence over
+        its row (the reference trains every stage on 4 GPUs,
+        train_h1esc_b.py:170-187)."""
+        self._setup_mesh(mesh, device)
         self.normmats = torch.as_tensor(normmats, dtype=torch.float32,
                                         device=self.device)
         self.epss = torch.as_tensor(epss, dtype=torch.float32,
                                     device=self.device)
-        opt, step_fn = make_stage_b_step(cfg, device=self.device)
-        eval_fn = make_stage_b_eval(cfg, device=self.device)
+        encoder_fn = _mesh_encoder_fn(mesh, cfg.encoder_block_bp)
+        opt, step_fn = make_stage_b_step(cfg, encoder_fn, self.device,
+                                         self.group)
+        eval_fn = make_stage_b_eval(cfg, encoder_fn, self.device, self.group)
         self._base_init(cfg, loop, sampler, trainable, frozen, nan_skip,
                         accumulate, opt, step_fn, eval_fn, "stage_b")
 
@@ -319,8 +383,8 @@ class StageBTrainer(_Trainer):
         self.cfg = cfg
         self.loop = loop
         self.sampler = sampler
-        self.trainable = trainable
-        self.frozen = frozen
+        self.trainable = self._replicate(trainable)
+        self.frozen = self._replicate(frozen)
         self.nan_skip = nan_skip
         self.accumulate = accumulate
         self.opt, self.step_fn, self.eval_fn = opt, step_fn, eval_fn
@@ -390,7 +454,8 @@ class StageBTrainer(_Trainer):
         for _ in range(self.loop.val_batches):
             mses, corrs = self._eval_batch()
             for lv in self.cfg.levels:
-                level_corrs[lv].append(_to_host(corrs[lv]))
+                level_corrs[lv].append(
+                    multihost.fetch_global(corrs[lv], self.mesh))
                 level_mses[lv].append(float(mses[lv]))
         metrics = {}
         for lv in self.cfg.levels:
@@ -440,11 +505,13 @@ class StageCTrainer(StageBTrainer):
     def __init__(self, cfg: StageCConfig, loop: LoopConfig, sampler,
                  trainable: dict, frozen: dict, nan_skip: float = 0.5,
                  accumulate: int = 1, mesh=None, device=None):
-        """device: None = CUDA; mesh must be None (one device)."""
-        _no_mesh(mesh)
-        self.device = resolve_device(device)
-        opt, step_fn = make_stage_c_step(cfg, device=self.device)
-        eval_fn = make_stage_c_eval(cfg, device=self.device)
+        """device, mesh: as for StageBTrainer (the 256 Mb windows are where
+        sharding the tower's sequence matters most)."""
+        self._setup_mesh(mesh, device)
+        encoder_fn = _mesh_encoder_fn(mesh, cfg.encoder_block_bp)
+        opt, step_fn = make_stage_c_step(cfg, encoder_fn, self.device,
+                                         self.group)
+        eval_fn = make_stage_c_eval(cfg, encoder_fn, self.device, self.group)
         self._base_init(cfg, loop, sampler, trainable, frozen, nan_skip,
                         accumulate, opt, step_fn, eval_fn, "stage_c")
 

@@ -30,22 +30,35 @@ def log_fold_target(target_r: torch.Tensor, normmat, eps) -> torch.Tensor:
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
-               normalize: str = "valid_mean") -> torch.Tensor:
+               normalize: str = "valid_mean", group=None) -> torch.Tensor:
     """MSE over finite target entries: 'valid_mean' divides by their count
-    (stages a and b), 'full_count' by every entry (stage c)."""
+    (stages a and b), 'full_count' by every entry (stage c).
+
+    group: a parallel.multihost.DataGroup whose ranks hold equal shares of
+    the batch. The sum stays this rank's and the count is the global batch's
+    (all-reduced, outside autograd), so the ranks' losses and gradients sum
+    to the one-process step's; a mean of per-rank means would not equal it
+    where the ranks hold different NaN counts."""
     mask = torch.isfinite(target)
     sq = torch.where(mask, (pred - torch.where(mask, target, 0.0)) ** 2, 0.0)
     if normalize == "valid_mean":
-        return sq.sum() / mask.sum().clamp_min(1)
-    return sq.sum() / pred.numel()
+        count = mask.sum()
+        if group is not None:
+            count = group.sum_(count)
+        return sq.sum() / count.clamp_min(1)
+    return sq.sum() / (pred.numel() * (group.world if group else 1))
 
 
 def bce(pred: torch.Tensor, target: torch.Tensor,
-        eps: float = 1e-7) -> torch.Tensor:
+        eps: float = 1e-7, group=None) -> torch.Tensor:
     """Binary cross-entropy on probabilities (nn.BCELoss semantics), clamped
-    for numerical safety."""
+    for numerical safety. group: as for masked_mse, over the global
+    batch's entries."""
     p = pred.clamp(eps, 1 - eps)
-    return -(target * torch.log(p) + (1 - target) * torch.log1p(-p)).mean()
+    terms = -(target * torch.log(p) + (1 - target) * torch.log1p(-p))
+    if group is None:
+        return terms.mean()
+    return terms.sum() / (terms.numel() * group.world)
 
 
 def pearson_r_per_sample(pred: torch.Tensor, target: torch.Tensor,

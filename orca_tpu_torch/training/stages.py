@@ -20,6 +20,14 @@ Every draw of a step (the stage-a flip, the dropout masks, the zoom offsets)
 goes through `utils.rng`. Kept from the JAX package: in stages b and c,
 level j's key seeds both its decoder's dropout and its zoom offset.
 Zoom offsets are drawn on the host, so the crops are plain slices.
+
+Data parallelism (`group`, a parallel.multihost.DataGroup): each rank runs
+its rows of the global batch; BatchNorm statistics, dropout masks and the
+losses' denominators are the global batch's, so the ranks' losses and
+gradients sum to the one-process step's. The gradient tree and the metrics
+are summed over the ranks before the update, which every rank then applies
+alike. BatchNorm running statistics need no all-reduce: their updates come
+from global statistics. With no group the step makes no collective call.
 """
 
 from __future__ import annotations
@@ -75,6 +83,24 @@ def _value_and_grad(loss_fn, params, *args):
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
+def _sum_metrics(group, metrics: dict) -> dict:
+    """0-d metrics summed over the group's ranks in one collective;
+    unchanged without a group."""
+    if group is None:
+        return metrics
+    keys = sorted(metrics)
+    values = group.sum_(torch.stack([metrics[k].detach() for k in keys]))
+    return dict(zip(keys, values.unbind()))
+
+
+def _reduce(group, grads, metrics: dict):
+    """The gradient tree (one flat buffer per dtype) and the metrics summed
+    over the group's ranks; unchanged without a group."""
+    if group is None:
+        return grads, metrics
+    return group.sum_tree(grads), _sum_metrics(group, metrics)
+
+
 def _update(opt, params, opt_state, grads, lr, bn_updates):
     params, opt_state = optim.apply_sgd(opt, params, opt_state, grads, lr)
     bn = BNUpdates()
@@ -86,7 +112,7 @@ def _detached(metrics: dict) -> dict:
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_stage_a_step(cfg: StageAConfig, device=None):
+def make_stage_a_step(cfg: StageAConfig, device=None, group=None):
     """Returns (opt, step): step(params, opt_state, seq, target, target_1d,
     rng, lr, normmat_r, eps) -> (params, opt_state, metrics).
 
@@ -94,13 +120,14 @@ def make_stage_a_step(cfg: StageAConfig, device=None):
     ((N, num_2d, crop*f, crop*f) for multi-head models); target_1d: (N,
     crop, num_1d) binary tracks; normmat_r: (crop, crop) or (num_2d, crop,
     crop). All tensors on `device` (None = CUDA, which must be present);
-    rng a key.
+    rng a key. group: the data-parallel group, None for one process; the
+    batch tensors are then this rank's rows.
     """
     resolve_device(device)
     opt = optim.sgd(cfg.momentum)
 
     def loss_fn(params, seq, target, target_1d, rng, normmat_r, eps):
-        bn = BNUpdates()
+        bn = BNUpdates(group=group)
         out = decoders.apply_net(
             params, seq, num_1d=cfg.num_1d, num_2d=cfg.num_2d, train=True,
             rng=rng, bn_updates=bn, remat=cfg.remat,
@@ -109,8 +136,9 @@ def make_stage_a_step(cfg: StageAConfig, device=None):
         target_r = losses.downsample_nanmean(target, cfg.crop,
                                              cfg.target_factor)
         tlog = losses.log_fold_target(target_r, normmat_r, eps)
-        loss2d = losses.masked_mse(_align_heads(pred, cfg.num_2d), tlog)
-        loss1d = (losses.bce(pred_1d, target_1d) if cfg.num_1d
+        loss2d = losses.masked_mse(_align_heads(pred, cfg.num_2d), tlog,
+                                   group=group)
+        loss1d = (losses.bce(pred_1d, target_1d, group=group) if cfg.num_1d
                   else torch.zeros((), device=pred.device))
         return loss2d + loss1d, (bn.updates,
                                  {"loss2d": loss2d, "loss1d": loss1d})
@@ -126,18 +154,22 @@ def make_stage_a_step(cfg: StageAConfig, device=None):
                 target_1d = torch.flip(target_1d, dims=(1,))
         loss, (bn_updates, metrics), grads = _value_and_grad(
             loss_fn, params, seq, target, target_1d, rng_drop, normmat_r, eps)
+        grads, metrics = _reduce(group, grads,
+                                 dict(_detached(metrics), loss=loss))
         params, opt_state = _update(opt, params, opt_state, grads, lr,
                                     bn_updates)
-        return params, opt_state, dict(_detached(metrics), loss=loss)
+        return params, opt_state, metrics
 
     return opt, step
 
 
 def stage_a_eval_metrics(params, cfg: StageAConfig, seq, target, target_1d,
-                         normmat_r, eps):
+                         normmat_r, eps, group=None):
     """Validation forward: (pearson r per sample, mse, bce). Unfolded
     parameters are folded first (`fold_params`), so on a CUDA tensor the
-    tower runs the fused kernels; the CPU takes their plain versions."""
+    tower runs the fused kernels; the CPU takes their plain versions. With
+    a data-parallel group the rows are this rank's: r is theirs, mse and
+    bce the global batch's."""
     if "bn" in params["encoder"]["lconv"][0][0]:
         params = fold_params(params, decoders.net_spec(cfg.num_1d,
                                                        cfg.num_2d))
@@ -149,13 +181,14 @@ def stage_a_eval_metrics(params, cfg: StageAConfig, seq, target, target_1d,
                                              cfg.target_factor)
         tlog = losses.log_fold_target(target_r, normmat_r, eps)
         aligned = _align_heads(pred, cfg.num_2d)
-        mse = losses.masked_mse(aligned, tlog)
+        mse = losses.masked_mse(aligned, tlog, group=group)
         n = pred.shape[0]
         corr = torch.stack([losses.pearson_r(a, t) for a, t in zip(
             aligned.reshape(n, -1), tlog.reshape(n, -1))])
-        loss1d = (losses.bce(pred_1d, target_1d) if cfg.num_1d
+        loss1d = (losses.bce(pred_1d, target_1d, group=group) if cfg.num_1d
                   else torch.zeros((), device=pred.device))
-    return corr, mse, loss1d
+        sums = _sum_metrics(group, {"mse": mse, "bce": loss1d})
+    return corr, sums["mse"], sums["bce"]
 
 
 # --------------------------------------------------------------------------
@@ -219,7 +252,8 @@ def _frozen_features(encoder_fn, params, seq):
         return encoder_fn(params, seq)
 
 
-def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None):
+def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None,
+                      group=None):
     """Returns (opt, step): step(trainable, frozen, opt_state, seq, target,
     rng, lr, normmats, epss) -> (trainable, opt_state, metrics).
 
@@ -227,7 +261,9 @@ def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None):
     frozen = {"encoder": ..., "decoder_1pt": ...} (folded).
     normmats: (n_levels, crop, crop) stacked coarse to fine; epss:
     (n_levels,). encoder_fn(params, seq) overrides the frozen tower's call.
-    All tensors on `device` (None = CUDA, which must be present).
+    All tensors on `device` (None = CUDA, which must be present). group:
+    the data-parallel group, None for one process; seq and target are then
+    this rank's rows.
     """
     resolve_device(device)
     opt = optim.sgd(cfg.momentum)
@@ -236,7 +272,7 @@ def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None):
     encoder_fn = encoder_fn or _default_encoder_fn(cfg.encoder_block_bp)
 
     def cascade_loss(trainable, frozen, seq, target, rng, normmats, epss):
-        bn = BNUpdates()
+        bn = BNUpdates(group=group)
         feats = _frozen_features(encoder_fn, frozen["encoder"], seq)
         encs = dict(zip(
             (1, 2, 4, 8, 16, 32),
@@ -267,7 +303,8 @@ def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None):
                 pred = pred + decoders.apply_decoder1m(
                     frozen["decoder_1pt"], enc_crop, num_2d=cfg.num_2d)
             tlog = losses.log_fold_target(target_r, normmats[j], epss[j])
-            lvl_loss = losses.masked_mse(_align_heads(pred, cfg.num_2d), tlog)
+            lvl_loss = losses.masked_mse(_align_heads(pred, cfg.num_2d), tlog,
+                                         group=group)
             total = total + lvl_loss
             metrics[f"loss_{level}"] = lvl_loss
             # random zoom; the coarse prediction is detached; rngs[j] also
@@ -281,18 +318,22 @@ def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None):
              epss):
         loss, (bn_updates, metrics), grads = _value_and_grad(
             cascade_loss, trainable, frozen, seq, target, rng, normmats, epss)
+        grads, metrics = _reduce(group, grads,
+                                 dict(_detached(metrics), loss=loss))
         trainable, opt_state = _update(opt, trainable, opt_state, grads, lr,
                                        bn_updates)
-        return trainable, opt_state, dict(_detached(metrics), loss=loss)
+        return trainable, opt_state, metrics
 
     return opt, step
 
 
-def make_stage_b_eval(cfg: StageBConfig, encoder_fn=None, device=None):
+def make_stage_b_eval(cfg: StageBConfig, encoder_fn=None, device=None,
+                      group=None):
     """Validation forward at the reference's fixed zoom offsets (start 0,
     then +(half/2 + 1) * 32, then +half/2 * level), returning per level
-    (mse, per-sample pearson r with the >30%-valid gate). device: as for
-    make_stage_b_step."""
+    (mse, per-sample pearson r with the >30%-valid gate). device, group: as
+    for make_stage_b_step; the mse is the global batch's, r per local
+    row."""
     resolve_device(device)
     geom = cfg.geometry
     crop, half = geom.crop, geom.half
@@ -325,12 +366,12 @@ def make_stage_b_eval(cfg: StageBConfig, encoder_fn=None, device=None):
                         frozen["decoder_1pt"], enc_crop, num_2d=cfg.num_2d)
                 tlog = losses.log_fold_target(target_r, normmats[j], epss[j])
                 aligned = _align_heads(pred, cfg.num_2d)
-                mses[level] = losses.masked_mse(aligned, tlog)
+                mses[level] = losses.masked_mse(aligned, tlog, group=group)
                 corrs[level] = losses.pearson_r_per_sample(aligned, tlog)
                 off = half // 2 + 1 if j == 0 else half // 2
                 start = start + off * level
                 coarse = pred[:, off:off + half, off:off + half, :]
-        return mses, corrs
+        return _sum_metrics(group, mses), corrs
 
     return evaluate
 
@@ -350,20 +391,26 @@ class StageCConfig:
     remat: bool = True  # see StageBConfig.remat
 
 
-def _nanmin(t: torch.Tensor) -> torch.Tensor:
-    """jnp.nanmin: the least non-NaN entry, NaN if there is none."""
+def _nanmin(t: torch.Tensor, group=None) -> torch.Tensor:
+    """jnp.nanmin: the least non-NaN entry, NaN if there is none; over the
+    global batch with a data-parallel group."""
     nan = torch.isnan(t)
-    if bool(nan.all()):
+    if group is None and bool(nan.all()):
         return torch.full((), float("nan"), dtype=t.dtype, device=t.device)
-    return torch.where(nan, float("inf"), t).min()
+    least = torch.where(nan, float("inf"), t).min()
+    if group is None:
+        return least
+    least = group.min_(least)
+    return torch.where(torch.isinf(least), float("nan"), least)
 
 
-def _stage_c_level(geom, j, start, target, normmat):
-    """(factor, target_r, normmat_r, eps) of level j at zoom start."""
+def _stage_c_level(geom, j, start, target, normmat, group=None):
+    """(factor, target_r, normmat_r, eps) of level j at zoom start; eps is
+    the least background entry of the global batch."""
     factor = geom.bins // (geom.crop * 2 ** j)
     target_r = _dynamic_downsample(target, start, geom.crop, factor)
     normmat_r = _dynamic_downsample(normmat, start, geom.crop, factor)
-    return factor, target_r, normmat_r, _nanmin(normmat_r)
+    return factor, target_r, normmat_r, _nanmin(normmat_r, group)
 
 
 def _stage_c_encodings(trainable, frozen, feats, train=False, **kw):
@@ -377,14 +424,16 @@ def _stage_c_encodings(trainable, frozen, feats, train=False, **kw):
     ))
 
 
-def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None):
+def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None,
+                      group=None):
     """Returns (opt, step): step(trainable, frozen, opt_state, seq, target,
     normmat, rng, lr) -> (trainable, opt_state, metrics).
 
     trainable = {"pyramid": ..., "decoders": {level: ...}};
     frozen = {"encoder": ..., "pyramid1": ...} (folded); normmat: (N, bins,
     bins) per-sample background, NaNs filled by the trainer. All tensors on
-    `device` (None = CUDA, which must be present).
+    `device` (None = CUDA, which must be present). group: as for
+    make_stage_b_step.
     """
     resolve_device(device)
     opt = optim.sgd(cfg.momentum)
@@ -393,7 +442,7 @@ def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None):
     encoder_fn = encoder_fn or _default_encoder_fn(cfg.encoder_block_bp)
 
     def cascade_loss(trainable, frozen, seq, target, normmat, rng):
-        bn = BNUpdates()
+        bn = BNUpdates(group=group)
         feats = _frozen_features(encoder_fn, frozen["encoder"], seq)
         encs = _stage_c_encodings(trainable, frozen, feats, train=True,
                                   rng=rng, bn_updates=bn, path="pyramid")
@@ -404,7 +453,7 @@ def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None):
         coarse = None
         for j, level in enumerate(cfg.levels):
             factor, target_r, normmat_r, eps = _stage_c_level(
-                geom, j, start, target, normmat)
+                geom, j, start, target, normmat, group)
             distenc = torch.log(normmat_r)[..., None]
             enc_crop = _slice(encs[level], start // factor, crop, 1)
             pred = decoders.apply_decoder(
@@ -415,7 +464,7 @@ def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None):
             )
             tlog = losses.log_fold_target(target_r, normmat_r, eps)
             lvl_loss = losses.masked_mse(pred[..., 0], tlog,
-                                         normalize="full_count")
+                                         normalize="full_count", group=group)
             total = total + lvl_loss
             metrics[f"loss_{level}"] = lvl_loss
             r = rng_lib.randint(rngs[j], 0, half)
@@ -426,17 +475,20 @@ def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None):
     def step(trainable, frozen, opt_state, seq, target, normmat, rng, lr):
         loss, (bn_updates, metrics), grads = _value_and_grad(
             cascade_loss, trainable, frozen, seq, target, normmat, rng)
+        grads, metrics = _reduce(group, grads,
+                                 dict(_detached(metrics), loss=loss))
         trainable, opt_state = _update(opt, trainable, opt_state, grads, lr,
                                        bn_updates)
-        return trainable, opt_state, dict(_detached(metrics), loss=loss)
+        return trainable, opt_state, metrics
 
     return opt, step
 
 
-def make_stage_c_eval(cfg: StageCConfig, encoder_fn=None, device=None):
+def make_stage_c_eval(cfg: StageCConfig, encoder_fn=None, device=None,
+                      group=None):
     """Stage-c validation at the reference's fixed offsets (+half/2 * 32
     after the coarsest level, then +(half/2 + 1) * factor), with per-sample
-    background normmats. device: as for make_stage_c_step."""
+    background normmats. device, group: as for make_stage_b_eval."""
     resolve_device(device)
     geom = cfg.geometry
     crop, half = geom.crop, geom.half
@@ -452,7 +504,7 @@ def make_stage_c_eval(cfg: StageCConfig, encoder_fn=None, device=None):
             mses, corrs = {}, {}
             for j, level in enumerate(cfg.levels):
                 factor, target_r, normmat_r, eps = _stage_c_level(
-                    geom, j, start, target, normmat)
+                    geom, j, start, target, normmat, group)
                 distenc = torch.log(normmat_r)[..., None]
                 enc_crop = _slice(encs[level], start // factor, crop, 1)
                 pred = decoders.apply_decoder(
@@ -461,11 +513,12 @@ def make_stage_c_eval(cfg: StageCConfig, encoder_fn=None, device=None):
                 )
                 tlog = losses.log_fold_target(target_r, normmat_r, eps)
                 mses[level] = losses.masked_mse(pred[..., 0], tlog,
-                                                normalize="full_count")
+                                                normalize="full_count",
+                                                group=group)
                 corrs[level] = losses.pearson_r_per_sample(pred[..., 0], tlog)
                 off = half // 2 if j == 0 else half // 2 + 1
                 start = start + off * factor
                 coarse = pred[:, off:off + half, off:off + half, :]
-        return mses, corrs
+        return _sum_metrics(group, mses), corrs
 
     return evaluate

@@ -23,15 +23,16 @@ def swa_update(swa_state: dict, params) -> dict:
     return {"avg": avg, "n": n + 1}
 
 
-def make_swa_bn_refresh(cfg):
+def make_swa_bn_refresh(cfg, group=None):
     """refresh(swa_state, seq, rng) -> swa_state with the averaged
     parameters' BatchNorm running statistics updated by a train-mode forward
-    of the batch (no gradient). `cfg` is a StageAConfig."""
+    of the batch (no gradient). `cfg` is a StageAConfig; group: the
+    data-parallel group (global batch statistics), None for one process."""
     from orca_tpu_torch.nn import decoders
     from orca_tpu_torch.ops import nn_ops
 
     def refresh(swa_state, seq, rng):
-        bn = BNUpdates()
+        bn = BNUpdates(group=group)
         with torch.no_grad(), nn_ops.full_fp32():
             decoders.apply_net(swa_state["avg"], seq, num_1d=cfg.num_1d,
                                num_2d=getattr(cfg, "num_2d", 1), train=True,

@@ -1,6 +1,7 @@
 """Structured metrics logging (counterpart of orca_tpu/utils/logging.py):
 one JSON line per record on stdout and in <workdir>/<name>.metrics.jsonl.
-The port runs on one device, as process 0: every record is written."""
+On multi-process runs only process 0 writes: every trainer calls `log` on
+every process, and each row would otherwise appear once per process."""
 
 from __future__ import annotations
 
@@ -19,6 +20,10 @@ class MetricsLogger:
         self._t0 = time.time()
 
     def log(self, step: int, **metrics):
+        from orca_tpu_torch.parallel import multihost
+
+        if not multihost.is_primary():
+            return None
         rec = {"step": step, "elapsed_s": round(time.time() - self._t0, 1)}
         rec.update(
             {k: (float(v) if hasattr(v, "__float__") else v)

@@ -59,15 +59,27 @@ def test_trainjob_from_json_equals_jax_package(tmp_path):
             pkg.TrainJob.from_json(str(bad))
 
 
-def test_mesh_and_multihost_name_a16():
+def test_mesh_and_multihost_name_a16(monkeypatch):
+    """The job's mesh: none without a spec, an unknown axis refused, a
+    one-process (1, seq) mesh for seq alone (the CPU named seq times), a
+    'data' axis of 2 refused inside one process (launch.run starts the
+    processes), and `multihost` needs torchrun's environment."""
     assert tlaunch.build_mesh(tlaunch.TrainJob(stage="a", workdir="x")) is None
     with pytest.raises(ValueError, match="date"):
         tlaunch.build_mesh(tlaunch.TrainJob(stage="a", workdir="x",
                                             mesh="date=4,seq=2"))
-    for job in (tlaunch.TrainJob(stage="b", workdir="x", mesh="data=2"),
-                tlaunch.TrainJob(stage="b", workdir="x", multihost=True)):
-        with pytest.raises(NotImplementedError, match="A16"):
-            tlaunch.make_trainer(job, device="cpu")
+    mesh = tlaunch.build_mesh(tlaunch.TrainJob(stage="b", workdir="x",
+                                               mesh="seq=2"), device="cpu")
+    assert mesh.shape == {"data": 1, "seq": 2} and mesh.data_group is None
+    assert mesh.devices == ((torch.device("cpu"),) * 2,)
+    with pytest.raises(ValueError, match="spans 2 processes"):
+        tlaunch.make_trainer(tlaunch.TrainJob(stage="b", workdir="x",
+                                              mesh="data=2"), device="cpu")
+    for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="MASTER_ADDR"):
+        tlaunch.make_trainer(tlaunch.TrainJob(stage="b", workdir="x",
+                                              multihost=True), device="cpu")
 
 
 def test_run_needs_cuda_unless_told_cpu(tmp_path):
@@ -249,6 +261,8 @@ def test_cli_train_equal(argv, tmp_path, monkeypatch, capsys):
 
 def test_cli_train_refuses_without_cuda_or_with_a_mesh(tmp_path, monkeypatch,
                                                        capsys):
+    """`train` refuses without CUDA; `--mesh` and a job file's mesh reach
+    the TrainJob that `run` takes; an unknown axis is a usage error."""
     path = tmp_path / "job.json"
     path.write_text(json.dumps({"workdir": str(tmp_path / "w")}))
     monkeypatch.setattr(tlaunch, "run", lambda job, device=None: {})
@@ -258,8 +272,15 @@ def test_cli_train_refuses_without_cuda_or_with_a_mesh(tmp_path, monkeypatch,
     assert e.value.code == 2
     assert "CUDA is not available" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+    monkeypatch.setattr(tlaunch, "run",
+                        lambda job, device=None: seen.append(job.mesh) or {})
+    assert tcli.main(["train", "b", "--config", str(path), "--mesh",
+                      "data=2,seq=2"]) == 0
     path.write_text(json.dumps({"workdir": str(tmp_path / "w"),
                                 "mesh": "data=2"}))
+    assert tcli.main(["train", "b", "--config", str(path)]) == 0
+    assert seen == ["data=2,seq=2", "data=2"]
     with pytest.raises(SystemExit) as e:
-        tcli.main(["train", "b", "--config", str(path)])
-    assert e.value.code == 2 and "ROADMAP A16" in capsys.readouterr().err
+        tcli.main(["train", "b", "--config", str(path), "--mesh", "date=2"])
+    assert e.value.code == 2 and "unknown mesh axes" in capsys.readouterr().err

@@ -178,13 +178,25 @@ def test_checkpoint_files_round_trip(tmp_path):
 
 
 def test_trainers_refuse_a_mesh_and_need_cuda_unless_told_cpu(tmp_path):
+    """A mesh of one row in this process is taken (its first device holds
+    the state and the batches, no data group); a mesh of several rows is
+    refused, since a 'data' axis spans processes; without CUDA a trainer
+    still needs device="cpu"."""
+    from orca_tpu_torch.parallel.mesh import make_mesh
+
     loop = tloop.LoopConfig(workdir=str(tmp_path))
     cfg = StageAConfig(num_1d=None, crop=10, seq_len=40_000)
     sampler = _port_sampler(_stage_a_sampler)
     nm = np.full((10, 10), 0.1, np.float32)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tloop.StageATrainer(cfg, loop, sampler, nm, 0.1, mesh=object(),
-                            device="cpu")
+    cpu = torch.device("cpu")
+    tr = tloop.StageATrainer(cfg, loop, sampler, nm, 0.1, device="cpu",
+                             mesh=make_mesh((1, 2), devices=[cpu] * 2))
+    assert tr.device == cpu and tr.group is None
+    assert torch.equal(tr._place(np.arange(6.0).reshape(2, 3)),
+                       torch.arange(6.0).reshape(2, 3).double())
+    with pytest.raises(ValueError, match="one row of its mesh"):
+        tloop.StageATrainer(cfg, loop, sampler, nm, 0.1, device="cpu",
+                            mesh=make_mesh((2, 1), devices=[cpu] * 2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tloop.StageATrainer(cfg, loop, sampler, nm, 0.1)
