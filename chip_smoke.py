@@ -9,6 +9,11 @@ Phases (any failure exits non-zero before the final line):
      each kernel's registers, spills and static shared memory (ptxas); the
      tensor-core kernels and the fp32 FFMA kernel must not spill, and the
      tensor-core kernels must not have their wgmmas serialized;
+ 2b. the host codec ("codec" lines): csrc/orca_native.cpp built with the
+     host's C++ compiler (timed; the phase fails unless it loads), then
+     `codes_to_onehot` on a 32 Mb window of codes (N among them), + and -
+     strand, against the numpy path it replaces, median of 3 each: bit-equal,
+     ms and GB/s of one-hot written;
   3. each kernel at the encoder's production shapes (4 Mb blocks + 112 kb
      halo, fwd + RC rows), bf16 and fp32: held against its plain PyTorch
      version, then timed with CUDA events beside the plain version and the
@@ -45,9 +50,11 @@ Phases (any failure exits non-zero before the final line):
   5. `genomepredict_256mb` on a whole synthetic chromosome: an in-memory
      genome of a 145.1 Mb chromosome and a padding chromosome, the region
      list of a whole-chromosome request, `retrieve_multi` for the sequence
-     and the region mosaic's background (both timed on the host), packed to
-     uint8 once; the unfolded random 256 Mb bundle is refused on the card
-     before any launch; the folded one runs 2 bf16 zoom targets (the second
+     and the region mosaic's background (both timed on the host, with the
+     codec's calls and seconds inside it; then again on the numpy path, the
+     codec switched off, its sequence bit-equal), packed to uint8 once; the
+     unfolded random 256 Mb bundle is refused on the card before any
+     launch; the folded one runs 2 bf16 zoom targets (the second
      near the chromosome's end, where the zoom is clamped), then 1 fp32, with
      the launch counters set to 0 before each request and checked (64 and
      384 per request), the zoom starts checked against a host float32
@@ -69,8 +76,9 @@ Phases (any failure exits non-zero before the final line):
      checked just after (48/288 and 384/2304), the maps checked finite,
      symmetric and 250x250, the dup's ref.l held to a direct `genomepredict`
      on the same window, the del's end coordinates inside each chromosome;
-     one `screen` line each (host seconds, launches, peak device memory,
-     peak host RSS). No plots: matplotlib is never imported;
+     one `screen` line each (host seconds, the codec's calls and seconds
+     and the other callees', launches, peak device memory, peak host RSS).
+     No plots: matplotlib is never imported;
   7. the standalone 1 Mb family on 1 Mb windows of the phase-5 genome with a
      random bundle (32 tracks): each kernel at the 1 Mb stage shapes (8 rows
      of one 1 Mb piece, valid everywhere), held against its plain version
@@ -184,6 +192,7 @@ PAD_CHROM_BP = 120_000_000
 WPOS_256 = 128_000_000
 ZOOM_TARGETS_256 = (64_000_000, 143_000_000)
 ONE_MB_WINDOW = 1_000_000  # the standalone 1 Mb model's window
+CODEC_BP = 32_000_000  # the codec phase's window: one 32 Mb request's
 
 # Published dense peaks (NVIDIA data sheets): (bf16 FLOP/s, fp32 FLOP/s on
 # the CUDA cores, memory bytes/s), keyed by a substring of the card's name.
@@ -804,16 +813,19 @@ class Timed:
     """Accumulates the host seconds of the calls to `module.name` while
     installed (the pipelines and cascades look their callees up at call
     time); `_device_sequence` is the one-hot's packing and copy to the
-    card."""
+    card. With `sync` False (host code) the clock stops without waiting for
+    the card."""
 
-    def __init__(self, torch, module, name):
+    def __init__(self, torch, module, name, sync=True):
         self.torch, self.module, self.name = torch, module, name
         self.fn, self.seconds, self.calls = getattr(module, name), 0.0, 0
+        self.sync = sync
 
     def __call__(self, *args, **kwargs):
         t0 = time.perf_counter()
         out = self.fn(*args, **kwargs)
-        self.torch.cuda.synchronize()
+        if self.sync:
+            self.torch.cuda.synchronize()
         self.seconds += time.perf_counter() - t0
         self.calls += 1
         return out
@@ -903,6 +915,7 @@ def screens_phase(torch, cc, zoo, genome):
     returns the launches summed over both screens."""
     import tempfile
 
+    from orca_tpu_torch.data import native
     from orca_tpu_torch.predict import (multiscale as ms, pipelines,
                                         resources, retrieval)
     from orca_tpu_torch.utils.coords import coord_clip
@@ -939,11 +952,13 @@ def screens_phase(torch, cc, zoo, genome):
     mstart, mend = 60_000_000, 60_800_000
     groups = 3 * 2 * 8
     with Timed(torch, pipelines, "genomepredict") as t_pred, \
-            Timed(torch, ms, "_device_sequence") as t_seq:
+            Timed(torch, ms, "_device_sequence") as t_seq, \
+            Timed(torch, native, "codes_to_onehot", sync=False) as t_codec:
         outs = run("dup32", lambda: pipelines.process_dup(
             "chrM", mstart, mend, genome, models32),
             {"fused_first_stage": groups, "fused_conv_chain": 6 * groups},
-            (t_pred, t_seq))
+            (t_codec, t_pred, t_seq))
+    check(t_codec.calls > 0, "dup32: the genome never ran the codec")
     check(len(outs) == 3, f"process_dup: {len(outs)} outputs")
     check_maps(outs, 6, "dup32")
     # ref.l against a direct genomepredict on the same window (not counted)
@@ -969,12 +984,21 @@ def screens_phase(torch, cc, zoo, genome):
     groups = 3 * 2 * 64
     with Timed(torch, retrieval, "retrieve_multi") as t_ret, \
             Timed(torch, pipelines, "genomepredict_256mb") as t_pred, \
-            Timed(torch, ms, "_device_sequence") as t_seq:
+            Timed(torch, ms, "_device_sequence") as t_seq, \
+            Timed(torch, native, "codes_to_onehot", sync=False) as t_codec:
+        t0 = time.perf_counter()
         outs = run("del256", lambda: pipelines.process_del(
             "chrM", mstart, mend, genome, models256,
             window_radius=128_000_000, padding_chr="chr1"),
             {"fused_first_stage": groups, "fused_conv_chain": 6 * groups},
-            (t_ret, t_pred, t_seq))
+            (t_codec, t_ret, t_pred, t_seq))
+        secs = time.perf_counter() - t0
+    check(t_codec.calls > 0 and t_ret.calls > 0,
+          "del256: the genome never ran the codec or retrieve_multi")
+    print(f"  del256 codec: {t_codec.seconds:.3f} s, "
+          f"{t_codec.seconds / t_ret.seconds:.1%} of retrieve_multi's "
+          f"{t_ret.seconds:.3f} s, {t_codec.seconds / secs:.1%} of the "
+          f"screen's {secs:.3f} s", flush=True)
     chrlen = genome.chr_len("chrM")
     alt = chrlen - (mend - mstart)
     limits = [chrlen - chrlen % 32000] * 2 + [alt - alt % 32000]
@@ -2467,6 +2491,45 @@ def tree_cuda(torch, tree):
     return tree_map(lambda t: t.cuda(), tree)
 
 
+def codec_phase(native, genome_mod):
+    """Phase 2b: build and load the host codec, then `codes_to_onehot` on a
+    32 Mb window of codes, each strand against the numpy path it replaces
+    (host clock, median of 3 calls each: every call allocates its output,
+    as a request's does)."""
+    t_phase = time.perf_counter()
+    check(native.available(), "codec: no C++ compiler on PATH")
+    print(f"codec: built and loaded in {time.perf_counter() - t_phase:.3f} s",
+          flush=True)
+    codes = np.random.RandomState(SEED + 5).randint(0, 5, CODEC_BP).astype(
+        np.uint8)
+
+    def numpy_path(rc):
+        enc = genome_mod.codes_to_encoding(codes)
+        return np.ascontiguousarray(enc[::-1, ::-1] if rc else enc)
+
+    def median_s(fn):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times), out
+
+    for rc, strand in ((False, "+"), (True, "-")):
+        nat_s, got = median_s(lambda: native.codes_to_onehot(codes, rc=rc))
+        ref_s, want = median_s(lambda: numpy_path(rc))
+        check(got.dtype == want.dtype and got.shape == want.shape
+              and np.array_equal(got, want),
+              f"codec {strand}: the C++ one-hot differs from numpy's")
+        gb = got.nbytes / 1e9
+        print(f"codec {strand}: {CODEC_BP // 10**6} Mb window, native "
+              f"{nat_s * 1e3:.3f} ms ({gb / nat_s:.3f} GB/s written), numpy "
+              f"{ref_s * 1e3:.3f} ms ({gb / ref_s:.3f} GB/s), "
+              f"{ref_s / nat_s:.2f}x, bit-equal", flush=True)
+        del got, want
+    print(f"codec: phase {time.perf_counter() - t_phase:.3f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2477,6 +2540,7 @@ def main() -> int:
     try:
         from orca_tpu_torch.models import zoo
         from orca_tpu_torch.nn import encoders
+        from orca_tpu_torch.data import genome as genome_mod, native
         from orca_tpu_torch.data.genome import CodeGenome
         from orca_tpu_torch.ops.kernels import build, conv_chain as cc
         from orca_tpu_torch.predict import multiscale as ms, retrieval
@@ -2516,6 +2580,9 @@ def main() -> int:
             check(not re.search(r"mma|ffma", k["name"])
                   or (k["spill"] == (0, 0) and not k["serialized"]),
                   f"{k['name']} spills registers or serializes wgmma")
+
+    # 2b. the host codec
+    codec_phase(native, genome_mod)
 
     # weights: a random full-width bundle, folded (fp32) and cast (bf16)
     t0 = time.perf_counter()
@@ -2653,19 +2720,36 @@ def main() -> int:
     fp32_256 = zoo.fold_256m_bundle(raw_256)
     bf16_256 = zoo.cast_bundle(fp32_256, "bfloat16")
     t0 = time.perf_counter()
-    sequence, normmats = retrieval.retrieve_multi(regions, genome,
-                                                  models_256m=[fp32_256])
+    with Timed(torch, native, "codes_to_onehot", sync=False) as t_codec:
+        sequence, normmats = retrieval.retrieve_multi(regions, genome,
+                                                      models_256m=[fp32_256])
     retrieve_s = time.perf_counter() - t0
+    check(t_codec.calls > 0, "retrieval256: the genome never ran the codec")
     t0 = time.perf_counter()
     seq256 = encoders.pack_onehot(sequence)
     pack_s = time.perf_counter() - t0
     check(sequence.shape == (1, geom.window_bp, 4)
           and normmats[0].shape == (geom.bins, geom.bins),
           f"retrieval: {sequence.shape} {normmats[0].shape}")
-    del sequence
+    # the same retrieval on the numpy path (the codec switched off, as on a
+    # host with no C++ compiler): equal bytes, and the codec's gain
+    available = native.available
+    native.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        numpy_sequence, _ = retrieval.retrieve_multi(regions, genome,
+                                                     models_256m=[fp32_256])
+        numpy_s = time.perf_counter() - t0
+    finally:
+        native.available = available
+    check(np.array_equal(sequence, numpy_sequence),
+          "retrieval256: the codec's sequence differs from the numpy path's")
+    del sequence, numpy_sequence
     print(f"retrieval256: retrieve_multi {retrieve_s:.3f} s (sequence and "
-          f"background of {regions}), pack to uint8 {pack_s:.3f} s",
-          flush=True)
+          f"background of {regions}; the codec {t_codec.calls} calls "
+          f"{t_codec.seconds:.3f} s, {t_codec.seconds / retrieve_s:.1%}), "
+          f"pack to uint8 {pack_s:.3f} s; on the numpy path retrieve_multi "
+          f"{numpy_s:.3f} s, sequence bit-equal", flush=True)
     before = (cc.fused_first_stage.launches, cc.fused_conv_chain.launches)
     try:
         ms.genomepredict_256mb(seq256, "chrM", normmats, chrlen,

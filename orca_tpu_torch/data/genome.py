@@ -3,10 +3,10 @@
 The reference stores the genome as a float32 one-hot memmap — 16 bytes/bp,
 47 GB for hg38 (selene_utils2.py:38-151). Here the persistent format is one
 uint8 *base code* per bp (~3 GB for hg38): A=0, C=1, G=2, T=3, other=4.
-One-hot expansion is a table lookup at retrieval time (vectorized np.take on
-host, or done on-device from int8 codes). Unknown bases expand to 0.25 per
-channel and out-of-bounds queries are padded with 0.25, matching the
-reference semantics (selene_utils2.py:201-230).
+One-hot expansion is a table lookup at retrieval time: the C++ codec
+(data/native.py) where a C++ compiler is on PATH, else numpy. Unknown bases
+expand to 0.25 per channel and out-of-bounds queries are padded with 0.25,
+matching the reference semantics (selene_utils2.py:201-230).
 
 Coordinates are 0-based half-open. Negative-strand queries return the
 reverse complement via the double flip encoding[::-1, ::-1] (valid because
@@ -20,6 +20,8 @@ import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from orca_tpu_torch.data import native
 
 _CODE = np.full(256, 4, dtype=np.uint8)
 for i, base in enumerate("ACGT"):
@@ -99,6 +101,10 @@ class CodeGenome:
         if strand not in ("+", "-"):
             raise ValueError(f"bad strand {strand!r}")
         codes = self.get_codes(chrom, start, end)
+        # the C++ codec where a compiler built it (data/native.py); called
+        # through the module, so a wrapper installed there sees every call
+        if native.available():
+            return native.codes_to_onehot(codes, rc=(strand == "-"))
         enc = codes_to_encoding(codes)
         if strand == "-":
             enc = enc[::-1, ::-1]

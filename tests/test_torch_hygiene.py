@@ -9,6 +9,7 @@ installs the configuration `get_config` returns."""
 
 import ast
 import os
+import re
 import pathlib
 import subprocess
 import sys
@@ -52,8 +53,45 @@ def test_command_line_and_1m_family_are_checked_sources():
                 "training/optim.py", "training/swa.py", "utils/rng.py",
                 "utils/logging.py", "data/sampler.py", "data/pipeline.py",
                 "parallel/mesh.py", "parallel/sequence.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "data/native.py"):
         assert PORT / rel in sources, rel
+
+
+# The modules of orca_tpu with no counterpart in the port, each with why.
+UNPORTED = {
+    "certify.py": "ROADMAP A17: both modes drive the original Orca's torch "
+                  "modules from a reference checkout the repository lacks",
+    "ops/pallas/__init__.py": "the Pallas kernels' package: its kernels are "
+                              "ported into csrc/conv_chain.cu",
+    "ops/pallas/conv1d.py": "ported into csrc/conv_chain.cu behind "
+                            "ops/kernels/conv_chain.py",
+}
+JAX_MODULES = sorted(str(p.relative_to(REPO / "orca_tpu"))
+                     for p in (REPO / "orca_tpu").rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", JAX_MODULES)
+def test_every_jax_module_has_a_counterpart(rel):
+    """Each module of orca_tpu has one at the same path in orca_tpu_torch,
+    or is listed in UNPORTED with its reason (and then has none)."""
+    assert (PORT / rel).exists() != (rel in UNPORTED), rel
+
+
+def test_unported_modules_are_jax_modules():
+    assert sorted(UNPORTED) == sorted(set(UNPORTED) & set(JAX_MODULES))
+
+
+@pytest.mark.parametrize("path", sorted(p for p in PORT.rglob("*")
+                                        if p.suffix in (".py", ".cu", ".cpp")),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_never_names_the_native_directory(path):
+    """The port builds its codec from csrc/orca_native.cpp: no source of it
+    names the JAX package's native/ directory or its library there."""
+    text = path.read_text()
+    assert not re.search(r"(?<![\w.])native[/\\]", text)
+    if path.suffix == ".py":
+        assert not [n for n in ast.walk(ast.parse(text, str(path)))
+                    if isinstance(n, ast.Constant) and n.value == "native"]
 
 
 def _bound_names(path):
