@@ -159,9 +159,24 @@ Phases (any failure exits non-zero before the final line):
      the writers' params. One `training_dp` line: seconds a step per rank,
      the frozen tower, host sampling, the all-reduces' host seconds and
      calls, launches, peak device memory per rank;
- 11. one JSON line with every kernel (its launches summed over every request
-     of phases 4-9, the sharded phases and the training phases), then the
-     device line.
+ 11. the benchmark ("bench"), through the command line a user runs:
+     `cli.main(["bench"])` in this process at ORCA_BENCH_ITERS=2 with every
+     section (32 Mb bf16, two models, fp32 and its two models, 256 Mb bf16
+     and fp32, stage-a and stage-b steps), stdout and stderr captured, the
+     launch counters set to 0 just before. The JSON line printed on a line
+     of its own, each section's seconds and peak device memory on `bench|`
+     lines. Checked: exactly one line on stdout; every key of the JAX
+     package's benchmark line (bench.py's `result`) and of its stage-a and
+     stage-b training fields (scripts/bench_training.py), read from their
+     sources, and `power_limit_w`; no `*_error` key; every number finite and
+     positive; `device` the card's name; each kernel's launches per dtype
+     equal to the sections' requests and steps times the tower's groups;
+     the bf16 and fp32 seconds a 32 Mb window within 0.5-2x of phase 4's
+     warm request less the sequence's copy to the card (the benchmark's
+     sequence is on the card before timing);
+ 12. one JSON line with every kernel (its launches summed over every request
+     of phases 4-9, the sharded phases, the training phases and the
+     benchmark), then the device line.
 """
 
 from __future__ import annotations
@@ -2267,6 +2282,157 @@ def training_phase(torch, cc, peaks, sms):
     return {"fused_first_stage": total[0], "fused_conv_chain": total[1]}
 
 
+# --------------------------------------------------------------------------
+# 11. the benchmark
+# --------------------------------------------------------------------------
+
+BENCH_ITERS = 2  # ORCA_BENCH_ITERS of the phase
+BENCH_RATIO = (0.5, 2.0)  # bench s a 32 Mb window / phase 4's, less the copy
+
+
+def bench_keys():
+    """The JAX package's benchmark line's keys (bench.py's `result`, the
+    error keys aside) and those its training fields take from
+    scripts/bench_training.py's stage-a and stage-b functions, read from
+    their sources (parsed, not imported)."""
+    import ast
+
+    def parse(*rel):
+        with open(os.path.join(ROOT, *rel)) as f:
+            return ast.parse(f.read())
+
+    keys = set()
+    main_fn = next(n for n in parse("bench.py").body
+                   if isinstance(n, ast.FunctionDef) and n.name == "main")
+    for node in ast.walk(main_fn):
+        if not isinstance(node, ast.Assign):
+            continue
+        target = node.targets[0]
+        if isinstance(target, ast.Name) and target.id == "result":
+            keys.update(k.value for k in node.value.keys)
+        elif (isinstance(target, ast.Subscript)
+              and isinstance(target.value, ast.Name)
+              and target.value.id == "result"):
+            keys.add(target.slice.value)
+    for fn in parse("scripts", "bench_training.py").body:
+        if (isinstance(fn, ast.FunctionDef)
+                and fn.name in ("bench_stage_a", "bench_stage_b")):
+            ret = next(n for n in ast.walk(fn) if isinstance(n, ast.Return))
+            keys.update(k.value for k in ret.value.keys)
+    return {k for k in keys if not k.endswith("_error")}
+
+
+def bench_launches():
+    """Each kernel's launches per dtype in one benchmark run at BENCH_ITERS:
+    a section's requests (the warm-up, the first run, then the timed runs;
+    a two-model run is two requests) times the tower's groups a request,
+    and stage b's three steps times a step's (one 32 Mb row in 800 kb
+    blocks). Stage a trains the whole 1 Mb Net on cuDNN: no launch."""
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.training.stages import StageBConfig
+
+    later = max(1, BENCH_ITERS - 1)
+    g32 = fused_group_count(2, 32_000_000)
+    g256 = fused_group_count(2, 256_000_000)
+    gb = fused_group_count(1, 32_000_000, StageBConfig().encoder_block_bp)
+    groups = {
+        # one model, then two models
+        "bfloat16": (2 + BENCH_ITERS + 1 + 2 * (1 + later)) * g32
+        + (2 + later) * g256,
+        # one model, two models at one timed run, 256 Mb at one, stage b
+        "float32": (2 + later + 1 + 2 * 2) * g32 + 3 * g256 + 3 * gb,
+    }
+    return {dtype: {"fused_first_stage": g, "fused_conv_chain": 6 * g}
+            for dtype, g in groups.items()}
+
+
+def bench_phase(torch, cc, seq, request_s):
+    """Phase 11: `cli.main(["bench"])` in this process (module docstring).
+    `seq` is phase 4's packed 32 Mb window, `request_s` phase 4's warm
+    request seconds per dtype name. Returns the launches per dtype name."""
+    import io
+
+    from orca_tpu_torch import cli
+    from orca_tpu_torch.predict import multiscale as ms
+
+    # the sequence's copy to the card: in a request's seconds, not the
+    # benchmark's
+    copies = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms._device_sequence(seq, "cuda")
+        torch.cuda.synchronize()
+        copies.append(time.perf_counter() - t0)
+    copy_s = statistics.median(copies)
+
+    # each launch's dtype, beside the counters (a launch raises or counts)
+    by_dtype = {}
+    launch = cc._launch
+
+    def counted_launch(counted, *args):
+        before = counted.launches
+        out = launch(counted, *args)
+        key = (str(args[10]).replace("torch.", ""), counted.__name__)
+        by_dtype[key] = by_dtype.get(key, 0) + counted.launches - before
+        return out
+
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("ORCA_BENCH_")}
+    os.environ["ORCA_BENCH_ITERS"] = str(BENCH_ITERS)
+    out, err = io.StringIO(), io.StringIO()
+    cc._launch = counted_launch
+    reset_counters(cc)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main(["bench"])
+    finally:
+        secs = time.perf_counter() - t0
+        cc._launch = launch
+        del os.environ["ORCA_BENCH_ITERS"]
+        os.environ.update(saved)
+        for line in err.getvalue().splitlines():
+            print(f"bench| {line}", flush=True)
+    counts = counters(cc)
+    lines = out.getvalue().splitlines()
+    check(rc == 0 and len(lines) == 1,
+          f"bench: exit {rc}, {len(lines)} lines on stdout: {lines[-3:]}")
+    line = json.loads(lines[0])
+    print("bench " + json.dumps(line), flush=True)
+    errors = sorted(k for k in line if k.endswith("_error"))
+    check(not errors, f"bench: {[(k, line[k]) for k in errors]}")
+    missing = sorted(bench_keys() - set(line))
+    check(not missing, f"bench: keys missing: {missing}")
+    bad = [k for k, v in line.items()
+           if isinstance(v, (int, float)) and not isinstance(v, bool)
+           and not (np.isfinite(v) and v > 0)]
+    check(not bad, f"bench: not finite and positive: "
+          f"{[(k, line[k]) for k in bad]}")
+    check(isinstance(line.get("power_limit_w"), float),
+          f"bench: power_limit_w {line.get('power_limit_w')}")
+    check(line["device"] == torch.cuda.get_device_name(0),
+          f"bench: device {line['device']!r}")
+    want = bench_launches()
+    got = {dtype: {name: by_dtype.get((dtype, name), 0) for name in w}
+           for dtype, w in want.items()}
+    total = {name: sum(g[name] for g in got.values()) for name in counts}
+    ratios = {}
+    for dtype, key in (("bfloat16", "seconds_per_32Mb_window"),
+                       ("float32", "fp32_seconds_per_window")):
+        ratios[dtype] = line[key] / (request_s[dtype] - copy_s)
+    print(f"bench: phase {secs:.1f} s, launches {got} (expected {want}), "
+          f"a 32 Mb window against phase 4's request less the copy "
+          f"({copy_s:.4f} s): "
+          f"{ {k: round(v, 3) for k, v in ratios.items()} }", flush=True)
+    check(got == want and counts == total,
+          f"bench: launches {got} (counters {counts}) != {want}")
+    for dtype, r in ratios.items():
+        check(BENCH_RATIO[0] <= r <= BENCH_RATIO[1],
+              f"bench: {dtype} window {r:.3f}x phase 4's request")
+    return got
+
+
 # Phase 10b: data-parallel training. Two processes share the one card, each
 # a (data, seq) mesh row that names cuda:0 twice, so together they drive a
 # (2, 2) mesh. nccl refuses two ranks on one card; gloo takes CUDA tensors.
@@ -2915,7 +3081,17 @@ def main() -> int:
         launches[torch.float32][k] += v
     print(f"training launches: {counts}", flush=True)
 
-    # 11. the kernel line and the device line
+    # 11. the benchmark, through the command line
+    got = bench_phase(torch, cc, seq, {
+        "bfloat16": refs[torch.bfloat16]["seconds"],
+        "float32": refs[torch.float32]["seconds"],
+    })
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        for k, v in got[name].items():
+            launches[dtype][k] += v
+
+    # 12. the kernel line and the device line
     rows = []
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, t in kernel_rows[dtype].items():

@@ -10,13 +10,15 @@ plus framework utilities:
                 the card and answers commands read from stdin
   convert       the reference's torch statedicts -> a bundle pickle
   train         a training stage (a | b | c) from a TrainJob JSON
-The JAX package's `certify` and `bench` keep their arguments here but are
-not ported yet: each exits with the ROADMAP item that will port it.
+  bench         the benchmark (`orca_tpu_torch.bench`): one JSON line of
+                Mb/s per card and training-step timings
+The JAX package's `certify` keeps its arguments here but is not ported yet:
+it exits with the ROADMAP item that will port it.
 
 Predictions run on the CUDA card; `--cpu` runs them on the host CPU instead.
 A machine without CUDA refuses a prediction without `--cpu`, and refuses
-`train`, which runs on the card only (tests call
-`training.launch.run(job, device="cpu")`).
+`train` and `bench`, which run on the card only (tests call
+`training.launch.run(job, device="cpu")` and `bench.main(device="cpu")`).
 
 Coordinates: 'chr1:1000000-2000000' for region/del/dup/inv;
 'chr1:1000000|chr2:2000000|+-' for break (two breakpoints + orientations).
@@ -38,7 +40,6 @@ PREDICTION_MODES = ("region", "del", "dup", "inv", "break")
 # item of the port
 _NOT_PORTED = {
     "certify": ("A17", "certification against the reference's modules"),
-    "bench": ("A14", "the port's benchmark"),
 }
 
 
@@ -121,8 +122,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "file for cooler input)")
     p.add_argument("--out-prefix", default=None)
 
-    p = sub.add_parser("bench", help="run the standard benchmark (not "
-                       "ported yet: ROADMAP A14)")
+    p = sub.add_parser("bench", help="run the standard benchmark on the "
+                       "CUDA card: one JSON line (ORCA_BENCH_* variables)")
 
     p = sub.add_parser(
         "serve",
@@ -278,6 +279,17 @@ def main(argv=None):
 
     if args.command == "train":
         return _train(args, parser)
+
+    if args.command == "bench":
+        import torch
+
+        if not torch.cuda.is_available():
+            parser.error("CUDA is not available: the benchmark runs on the "
+                         "CUDA card")
+        from orca_tpu_torch import bench
+
+        bench.main()
+        return 0
 
     # prediction modes
     if not args.cpu:

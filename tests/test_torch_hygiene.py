@@ -53,7 +53,8 @@ def test_command_line_and_1m_family_are_checked_sources():
                 "training/optim.py", "training/swa.py", "utils/rng.py",
                 "utils/logging.py", "data/sampler.py", "data/pipeline.py",
                 "parallel/mesh.py", "parallel/sequence.py",
-                "utils/profiling.py", "data/native.py"):
+                "utils/profiling.py", "data/native.py", "bench.py",
+                "bench_training.py"):
         assert PORT / rel in sources, rel
 
 
@@ -202,6 +203,10 @@ def test_entry_points_need_cuda_unless_told_cpu():
         multiscale.genomepredict_256mb(None, "chr1", [], 0, models=())
     with pytest.raises(RuntimeError, match="CUDA"):
         zoo.load_bundle("unused.bundle")
+    from orca_tpu_torch import bench
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench._measure("bfloat16", None, 0, 0, 1)
 
 
 def test_1m_family_and_warmups_need_cuda_unless_told_cpu():
@@ -399,3 +404,7 @@ def test_training_entry_points_need_cuda_unless_told_cpu(tmp_path):
                            np.ones((6, 250, 250)), np.ones(6))
     with pytest.raises(RuntimeError, match="CUDA"):
         loop.StageCTrainer(stages.StageCConfig(), lc, None, {}, {})
+    from orca_tpu_torch import bench_training
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bench_training.bench_stage_a()
