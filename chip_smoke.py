@@ -174,9 +174,25 @@ Phases (any failure exits non-zero before the final line):
      the bf16 and fp32 seconds a 32 Mb window within 0.5-2x of phase 4's
      warm request less the sequence's copy to the card (the benchmark's
      sequence is on the card before timing);
- 12. one JSON line with every kernel (its launches summed over every request
-     of phases 4-9, the sharded phases, the training phases and the
-     benchmark), then the device line.
+ 13. the JAX package's drivers ("driver" lines), each through its entry
+     point on the card at a reduced count, the counters set to 0 just
+     before each in-process driver and its launches per dtype checked
+     against its group plan just after, its stdout and stderr echoed on
+     `driver|` lines: `bench_serve_screen` (4 dup/del variants through one
+     `serve --prewarm 32M` process it starts, `--plots record`; checked:
+     READY and every command OK, each kept .pkl's maps finite, symmetric
+     and 250x250, plot names recorded; the server's launches are in its
+     own process and not counted), `measure_loader` (8 batches a format,
+     in a process of its own: its workers fork), `bench_training enc`
+     (batch 4 at 1 Mb, 2 iterations; fp32, the kernels on the forward path
+     only), `profile_cascade`, `probe_two_model`, `probe_decoder` (n=2;
+     bf16; the decoder probe launches none), `smoke_e2e` (`--plots record`)
+     and `bench_256m` (ORCA_BENCH_ITERS=1). Checked on each: the JAX
+     script's keys or printed labels (read from its source), every number
+     finite and positive, the card's name;
+ 12. last, after phase 13: one JSON line with every kernel (its launches
+     summed over every request of phases 4-9, the sharded phases, the
+     training phases, the benchmark and the drivers), then the device line.
 """
 
 from __future__ import annotations
@@ -2346,6 +2362,28 @@ def bench_launches():
             for dtype, g in groups.items()}
 
 
+@contextlib.contextmanager
+def launches_by_dtype(cc):
+    """Yields {(dtype name, kernel name): launches} of the block, tallied by
+    wrapping the kernels' launch beside their counters (a launch raises or
+    counts)."""
+    by_dtype = {}
+    launch = cc._launch
+
+    def counted_launch(counted, *args):
+        before = counted.launches
+        out = launch(counted, *args)
+        key = (str(args[10]).replace("torch.", ""), counted.__name__)
+        by_dtype[key] = by_dtype.get(key, 0) + counted.launches - before
+        return out
+
+    cc._launch = counted_launch
+    try:
+        yield by_dtype
+    finally:
+        cc._launch = launch
+
+
 def bench_phase(torch, cc, seq, request_s):
     """Phase 11: `cli.main(["bench"])` in this process (module docstring).
     `seq` is phase 4's packed 32 Mb window, `request_s` phase 4's warm
@@ -2366,30 +2404,18 @@ def bench_phase(torch, cc, seq, request_s):
         copies.append(time.perf_counter() - t0)
     copy_s = statistics.median(copies)
 
-    # each launch's dtype, beside the counters (a launch raises or counts)
-    by_dtype = {}
-    launch = cc._launch
-
-    def counted_launch(counted, *args):
-        before = counted.launches
-        out = launch(counted, *args)
-        key = (str(args[10]).replace("torch.", ""), counted.__name__)
-        by_dtype[key] = by_dtype.get(key, 0) + counted.launches - before
-        return out
-
     saved = {k: os.environ.pop(k) for k in list(os.environ)
              if k.startswith("ORCA_BENCH_")}
     os.environ["ORCA_BENCH_ITERS"] = str(BENCH_ITERS)
     out, err = io.StringIO(), io.StringIO()
-    cc._launch = counted_launch
     reset_counters(cc)
     t0 = time.perf_counter()
     try:
-        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err), \
+                launches_by_dtype(cc) as by_dtype:
             rc = cli.main(["bench"])
     finally:
         secs = time.perf_counter() - t0
-        cc._launch = launch
         del os.environ["ORCA_BENCH_ITERS"]
         os.environ.update(saved)
         for line in err.getvalue().splitlines():
@@ -2431,6 +2457,272 @@ def bench_phase(torch, cc, seq, request_s):
         check(BENCH_RATIO[0] <= r <= BENCH_RATIO[1],
               f"bench: {dtype} window {r:.3f}x phase 4's request")
     return got
+
+
+# Phase 13: the JAX package's drivers, each through its entry point on the
+# card at a reduced count
+SERVE_VARIANTS = 4  # the serve screen's dup/del commands
+LOADER_BATCHES = 8  # the loader's timed batches a format
+ENC_BATCH, ENC_ITERS = 4, 2  # bench_training enc
+PROBE_N = 2  # the probes' timed runs a step
+DRIVER_256M_ITERS = 1  # bench_256m's ORCA_BENCH_ITERS
+
+
+def _script(*rel):
+    import ast
+
+    with open(os.path.join(ROOT, *rel)) as f:
+        return ast.parse(f.read())
+
+
+def dict_keys_with(tree, key):
+    """The keys of the first dict literal in `tree` that holds `key`."""
+    import ast
+
+    node = next(n for n in ast.walk(tree) if isinstance(n, ast.Dict)
+                and any(isinstance(k, ast.Constant) and k.value == key
+                        for k in n.keys))
+    return {k.value for k in node.keys}
+
+
+def subscript_keys(tree, function, name):
+    """The keys `function` assigns as `name["..."] = ...`."""
+    import ast
+
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == function)
+    return {t.slice.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
+            for t in n.targets if isinstance(t, ast.Subscript)
+            and isinstance(t.value, ast.Name) and t.value.id == name}
+
+
+def script_labels(tree):
+    """Regexes of the labels a JAX probe prints, in source order: the text
+    before the first ': ' of each literal first argument of `timeit(...)`
+    and `print(...)`, each formatted value standing for any text."""
+    import ast
+
+    found = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call) and isinstance(node.func, ast.Name)
+                and node.func.id in ("timeit", "print") and node.args):
+            continue
+        arg = node.args[0]
+        if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+            text = arg.value
+        elif (isinstance(arg, ast.JoinedStr)
+              and isinstance(arg.values[0], ast.Constant)):
+            text = "".join(v.value if isinstance(v, ast.Constant) else "\0"
+                           for v in arg.values)
+        else:
+            continue
+        label = text.split(": ")[0].lstrip("\n")
+        found.append((node.lineno, node.col_offset, ".+".join(
+            re.escape(p) for p in label.split("\0"))))
+    return [t for _, _, t in sorted(found)]
+
+
+def labels_match(printed, templates):
+    """Whether the printed labels are the templates in order (a template
+    matching one label or several in a row) followed by the card's line."""
+    i = 0
+    for t in templates:
+        n = 0
+        while i < len(printed) and re.fullmatch(t, printed[i]):
+            i, n = i + 1, n + 1
+        if not n:
+            return False
+    return printed[i:] == ["device"]
+
+
+def positive_numbers(fields, tag):
+    """Every number in `fields` finite and positive (bools aside)."""
+    bad = [(k, v) for k, v in fields.items()
+           if isinstance(v, (int, float)) and not isinstance(v, bool)
+           and not (np.isfinite(v) and v > 0)]
+    check(not bad, f"driver {tag}: not finite and positive: {bad}")
+
+
+def drivers_phase(torch, cc, kind):
+    """Phase 13 (module docstring). Returns the in-process drivers' launches
+    per dtype name."""
+    import glob
+    import io
+    import pickle
+    import tempfile
+
+    from orca_tpu_torch import bench_training
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.scripts import (
+        bench_256m,
+        bench_serve_screen,
+        probe_decoder,
+        probe_two_model,
+        profile_cascade,
+        smoke_e2e,
+    )
+
+    g32 = fused_group_count(2, 32_000_000)
+    t_phase = time.perf_counter()
+    total = {d: {"fused_first_stage": 0, "fused_conv_chain": 0}
+             for d in ("bfloat16", "float32")}
+
+    def run(name, fn, groups):
+        """`fn()` with the counters at 0 and the launches tallied per dtype,
+        its stdout and stderr echoed on `driver|` lines; `groups` is the
+        fused-tower runs it must make per dtype name. Returns (its result,
+        its stdout, its seconds, the launches)."""
+        torch.cuda.empty_cache()
+        reset_counters(cc)
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out), \
+                    contextlib.redirect_stderr(err), \
+                    launches_by_dtype(cc) as by_dtype:
+                result = fn()
+        finally:
+            secs = time.perf_counter() - t0
+            for line in (out.getvalue() + err.getvalue()).splitlines():
+                print(f"driver| {name}: {line}", flush=True)
+        got = {d: {k: by_dtype.get((d, k), 0) for k in total[d]}
+               for d in total}
+        want = {d: {"fused_first_stage": groups.get(d, 0),
+                    "fused_conv_chain": 6 * groups.get(d, 0)}
+                for d in total}
+        check(got == want and counters(cc) == {
+            k: sum(g[k] for g in got.values()) for k in counters(cc)},
+              f"driver {name}: launches {got} != {want}")
+        for d in total:
+            for k in total[d]:
+                total[d][k] += got[d][k]
+        return result, out.getvalue(), secs, got
+
+    def report(name, secs, launches, fields, note=""):
+        print(f"driver {name} " + json.dumps(dict(
+            fields, driver_s=secs, launches=launches, note=note)), flush=True)
+
+    with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
+        # the warm-server screen: the server is another process, whose
+        # launches this process's counters do not see
+        root = os.path.join(tmp, "serve")
+        line, _, secs, got = run("bench_serve_screen", lambda: (
+            bench_serve_screen.main(SERVE_VARIANTS, plots="record",
+                                    root=root)), {})
+        keys = dict_keys_with(_script("scripts", "bench_serve_screen.py"),
+                              "serve_ready_s")
+        check(keys <= set(line) and line["serve_plots"] == "record",
+              f"driver bench_serve_screen: keys {sorted(line)}")
+        check(line["device"] == kind and isinstance(line["serve_prewarm_s"],
+                                                    float),
+              f"driver bench_serve_screen: {line}")
+        positive_numbers(line, "bench_serve_screen")
+        out_dir = os.path.join(root, "out")
+        pkls = sorted(glob.glob(os.path.join(out_dir, "*.pkl")))
+        check(len(pkls) == 1 + SERVE_VARIANTS,
+              f"driver bench_serve_screen: {len(pkls)} .pkl files")
+        for path in pkls:
+            with open(path, "rb") as f:
+                outs = pickle.load(f)
+            check_maps(outs if isinstance(outs, tuple) else [outs], 6,
+                       f"serve screen {os.path.basename(path)}")
+        with open(os.path.join(out_dir, bench_serve_screen.RECORDED_PLOTS)) as f:
+            plots = f.read().split()
+        check(plots and all(p.endswith(".pdf") for p in plots),
+              f"driver bench_serve_screen: recorded plots {plots}")
+        report("bench_serve_screen", secs, got, dict(
+            line, pkls=len(pkls), plots_recorded=len(plots)),
+            "READY and every command OK; each .pkl's maps finite, symmetric, "
+            "250x250; the server's launches are in its own process, not "
+            "counted here")
+
+        # the prefetch loader, host only, in a fresh process
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "orca_tpu_torch.scripts.measure_loader",
+             "--batches", str(LOADER_BATCHES)], cwd=ROOT, capture_output=True,
+            text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        for x in (proc.stdout + proc.stderr).splitlines():
+            print(f"driver| measure_loader: {x}", flush=True)
+        check(proc.returncode == 0,
+              f"driver measure_loader: exit {proc.returncode}")
+        line = json.loads(proc.stdout.splitlines()[-1])
+        keys = dict_keys_with(_script("scripts", "measure_loader.py"),
+                              "metric")
+        check(keys <= set(line) and line["device"] == kind,
+              f"driver measure_loader: {line}")
+        positive_numbers(line, "measure_loader")
+        report("measure_loader", secs, {}, line,
+               f"{LOADER_BATCHES} batches a format, 2 worker processes, in "
+               "a process of its own; no kernel")
+
+        # bench_training enc: fp32, the kernels on the forward path only
+        tree = _script("scripts", "bench_training.py")
+        line, _, secs, got = run("enc", lambda: bench_training.
+                                 bench_encoder_paths(batch=ENC_BATCH,
+                                                     iters=ENC_ITERS),
+                                 {"float32": (1 + ENC_ITERS) * fused_group_count(
+                                     ENC_BATCH, 1_000_000)})
+        check(set(line) == subscript_keys(tree, "bench_encoder_paths", "out"),
+              f"driver enc: keys {sorted(line)}")
+        positive_numbers(line, "enc")
+        report("enc", secs, got, dict(line, device=kind),
+               f"batch {ENC_BATCH} at 1 Mb, {ENC_ITERS} iterations")
+
+        # the probes, bf16 32 Mb: each step runs 2 + n times (profile:
+        # warm, single, n queued) or 1 + n times (two-model), and the
+        # profile factory runs the tower and the encoder once each
+        probes = (
+            ("profile_cascade", lambda: profile_cascade.main(n=PROBE_N),
+             {"bfloat16": (2 + 3 * (2 + PROBE_N)) * g32}),
+            ("probe_two_model", lambda: probe_two_model.main(iters=PROBE_N),
+             {"bfloat16": (1 + PROBE_N) * (4 * g32 + fused_group_count(
+                 4, 32_000_000))}),
+            ("probe_decoder", lambda: probe_decoder.main(n=PROBE_N), {}),
+        )
+        for name, fn, groups in probes:
+            result, printed, secs, got = run(name, fn, groups)
+            labels = [x.split(": ")[0] for x in printed.splitlines()
+                      if x.strip()]
+            check(labels_match(labels, script_labels(_script(
+                "scripts", f"{name}.py"))),
+                  f"driver {name}: labels {labels}")
+            check(result["device"] == kind, f"driver {name}: {result}")
+            positive_numbers(result, name)
+            report(name, secs, got, result, f"n={PROBE_N}")
+
+        # the product smoke, plots recorded
+        line, _, secs, got = run("smoke_e2e", lambda: smoke_e2e.main(
+            os.path.join(tmp, "smoke"), plots="record"),
+            {"bfloat16": 4 * g32})
+        keys = dict_keys_with(_script("scripts", "smoke_e2e.py"),
+                              "smoke_pdfs")
+        check(keys <= set(line) and line["smoke_device"] == kind
+              and line["smoke_pdfs"] == smoke_e2e.PDFS,
+              f"driver smoke_e2e: {line}")
+        positive_numbers(line, "smoke_e2e")
+        report("smoke_e2e", secs, got, line,
+               "process_region (1 window) + process_dup (3), one bf16 model")
+
+        # the 256 Mb throughput line
+        os.environ["ORCA_BENCH_ITERS"] = str(DRIVER_256M_ITERS)
+        try:
+            line, _, secs, got = run("bench_256m", bench_256m.main, {
+                "bfloat16": (2 + DRIVER_256M_ITERS) * fused_group_count(
+                    2, 256_000_000)})
+        finally:
+            del os.environ["ORCA_BENCH_ITERS"]
+        keys = dict_keys_with(_script("scripts", "bench_256m.py"), "metric")
+        check(set(line) == keys | {"power_limit_w"} and line["device"] == kind
+              and line["dtype"] == "bfloat16",
+              f"driver bench_256m: {line}")
+        positive_numbers(line, "bench_256m")
+        report("bench_256m", secs, got, line,
+               f"ORCA_BENCH_ITERS={DRIVER_256M_ITERS}")
+    print(f"drivers: phase {time.perf_counter() - t_phase:.1f} s, launches "
+          f"{total}", flush=True)
+    return total
 
 
 # Phase 10b: data-parallel training. Two processes share the one card, each
@@ -3091,7 +3383,13 @@ def main() -> int:
         for k, v in got[name].items():
             launches[dtype][k] += v
 
-    # 12. the kernel line and the device line
+    # 13. the JAX package's drivers, through their entry points
+    for name, c in drivers_phase(torch, cc, kind).items():
+        dtype = getattr(torch, name)
+        for k, v in c.items():
+            launches[dtype][k] += v
+
+    # 12. the kernel line and the device line, last
     rows = []
     for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for name, t in kernel_rows[dtype].items():

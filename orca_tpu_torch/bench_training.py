@@ -8,7 +8,9 @@ Measures, at production geometry, fp32 with TF32 off as every step runs:
   * stage b: one 32 Mb window a step, the folded tower frozen (the fused
     conv-chain kernels under no_grad), the pyramid and six decoders trained;
   * stage c: one 256 Mb window a step, the tower and the 32 Mb pyramid
-    frozen, the 256 Mb pyramid and four decoders trained.
+    frozen, the 256 Mb pyramid and four decoders trained;
+  * `enc`: the encoder tower's inference and training paths at the stage-a
+    shape (`bench_encoder_paths`).
 
 Each function builds its parameters from explicit `torch.Generator` seeds and
 its inputs from the JAX script's `np.random.RandomState` seeds, runs one step
@@ -17,10 +19,10 @@ then times `iters` steps, each ended by a host fetch of the loss, and returns
 the JAX script's keys. The reference's wall-clock budgets are the original
 Orca's published training runs (train/README.md:14), not measurements.
 
-    python -m orca_tpu_torch.bench_training a,b,c
+    python -m orca_tpu_torch.bench_training a,b,c,enc
 
-prints one JSON line after each stage. The JAX script's `enc` mode (the
-tower's inference and training paths at the stage-a shape) is not ported.
+prints one JSON line after each stage (all four by default, as the JAX
+script).
 """
 
 from __future__ import annotations
@@ -35,7 +37,9 @@ import torch
 
 from orca_tpu_torch.models import zoo
 from orca_tpu_torch.nn import decoders, encoders
-from orca_tpu_torch.nn.core import fold_params
+from orca_tpu_torch.nn.core import BNUpdates, fold_params
+from orca_tpu_torch.ops import nn_ops
+from orca_tpu_torch.scripts._common import fetch
 from orca_tpu_torch.training.stages import (
     StageAConfig,
     StageBConfig,
@@ -46,7 +50,7 @@ from orca_tpu_torch.training.stages import (
 )
 from orca_tpu_torch.utils import rng as rng_lib
 from orca_tpu_torch.utils.config import resolve_device
-from orca_tpu_torch.utils.tree import tree_map
+from orca_tpu_torch.utils.tree import tree_leaves, tree_map, tree_unflatten
 
 # the original Orca's training runs (train/README.md:14): steps, days on
 # 4x V100
@@ -213,13 +217,93 @@ def bench_stage_c(iters=3, cfg=None, device=None):
     }
 
 
+def encoder_train_step(params, seq):
+    """Stage a's differentiated encoder path on packed `seq`: the plain
+    stages with live BatchNorm (batch statistics, `BNUpdates` recorded)
+    under autograd, loss mean(out**2). Returns (loss, the gradient's sum
+    per leaf, in the parameters' tree; 0 where a leaf takes no gradient,
+    as the running statistics)."""
+    leaves = tree_leaves(params)
+    p = tree_unflatten(params, [t.detach().requires_grad_() for t in leaves])
+    with nn_ops.full_fp32():
+        out = encoders.apply_encoder_stages(
+            p, seq.to(leaves[0].dtype) * 0.25, train=True,
+            rng=rng_lib.key(0), bn_updates=BNUpdates(), path="encoder")
+        loss = torch.mean(out.to(leaves[0].dtype) ** 2)
+        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True)
+    sums = [torch.zeros((), dtype=t.dtype, device=t.device) if g is None
+            else g.sum() for t, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, sums)
+
+
+def encoder_forward(folded, seq):
+    """The serving path: the folded tower on the fused conv-chain kernels
+    (their plain versions on the CPU), in 4 Mb blocks with 112 kb halos."""
+    return encoders.apply_encoder_tower(folded, seq)
+
+
+def encoder_forward_stages(folded, seq):
+    """The same folded tower as one piece on the plain stages (cuDNN)."""
+    return encoders.apply_encoder_stages(folded, seq.float() * 0.25)
+
+
+def bench_encoder_paths(batch=4, seq_len=1_000_000, iters=6, device=None):
+    """The trainable-path encoder gap at the stage-a shape. The fused
+    kernels need folded BatchNorm (inference), so training pays the plain
+    stages. Three measurements, under the JAX script's keys:
+      enc_fwd_pallas_s     the folded tower forward on the fused conv-chain
+                           kernels (`encoder_forward`, serving);
+      enc_fwd_xla_s        the same folded forward on the plain cuDNN stages
+                           (`encoder_forward_stages`);
+      enc_train_step_xla_s forward + backward of the unfolded tower with
+                           live BatchNorm and `BNUpdates`, what stage a
+                           differentiates (`encoder_train_step`);
+    and enc_pallas_vs_xla_fwd, the second over the first. Batch 4 a card is
+    stage a's (the JAX script's 16 under fp32 autograd without
+    recomputation would save ~12 stage-0 activations of 4.1 GB). Each
+    path's peak device memory goes to stderr. `device` None = CUDA."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(6)
+    params = encoders.init_encoder_tower(gen)
+    folded = fold_params(params, encoders.encoder_tower_spec())
+    seq = _packed(np.random.RandomState(3), (batch, seq_len), device)
+
+    def fwd():
+        with torch.inference_mode():
+            return fetch(encoder_forward(folded, seq))
+
+    def fwd_xla():
+        with torch.inference_mode():
+            return fetch(encoder_forward_stages(folded, seq))
+
+    def train_step():
+        return fetch(encoder_train_step(params, seq)[0])
+
+    out = {}
+    for key, fn, n in (("enc_fwd_pallas_s", fwd, iters),
+                       ("enc_fwd_xla_s", fwd_xla, iters),
+                       ("enc_train_step_xla_s", train_step,
+                        max(2, iters // 2))):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(device)
+        out[key], _ = _timeit(fn, n)
+        if device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            print(f"bench_training {key}: peak device memory {peak:.2f} GiB",
+                  file=sys.stderr, flush=True)
+    out["enc_pallas_vs_xla_fwd"] = (out["enc_fwd_xla_s"]
+                                    / out["enc_fwd_pallas_s"])
+    return out
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    which = set((argv[0] if argv else "a,b,c").split(","))
-    unknown = which - {"a", "b", "c"}
+    which = set((argv[0] if argv else "a,b,c,enc").split(","))
+    unknown = which - {"a", "b", "c", "enc"}
     if unknown:
-        print(f"unknown stages {sorted(unknown)}: a, b and c are ported (the "
-              "JAX script's enc mode is not)", file=sys.stderr)
+        print(f"unknown stages {sorted(unknown)}: a, b, c and enc",
+              file=sys.stderr)
         return 2
     device = resolve_device(None)
     result = {"device": torch.cuda.get_device_name(device)}
@@ -235,6 +319,9 @@ def main(argv=None) -> int:
         except Exception as e:  # noqa: BLE001 — the JAX script's contract
             traceback.print_exc()
             result["stage_c_error"] = f"{type(e).__name__}: {e}"
+        print(json.dumps(result), flush=True)
+    if "enc" in which:
+        result.update(bench_encoder_paths())
         print(json.dumps(result), flush=True)
     return 0
 

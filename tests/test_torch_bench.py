@@ -245,3 +245,187 @@ def test_bench_needs_cuda_unless_told_cpu():
     for fn in (bench_training.bench_stage_b, bench_training.bench_stage_c):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
+
+
+# --------------------------------------------------------------------------
+# bench_training enc (the JAX script's bench_encoder_paths)
+# --------------------------------------------------------------------------
+
+
+def _assigned_keys(path, function, name="out"):
+    """The keys `function` in `path` assigns as `name["..."] = ...`."""
+    tree = ast.parse(path.read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == function)
+    return {t.slice.value for n in ast.walk(fn) if isinstance(n, ast.Assign)
+            for t in n.targets if isinstance(t, ast.Subscript)
+            and isinstance(t.value, ast.Name) and t.value.id == name}
+
+
+def _encoder_case(seed, batch, length):
+    """(unfolded numpy tower, folded numpy tower, packed uint8 sequence)."""
+    from orca_tpu.nn import encoders as jenc
+    from orca_tpu.nn.core import fold_params as jfold
+    from test_torch_encoders import numpy_tree
+
+    spec = jenc.encoder_tower_spec()
+    raw = numpy_tree(spec, np.random.RandomState(seed))
+    folded = jax.tree.map(np.asarray, jfold(jax.tree.map(jnp.asarray, raw),
+                                            spec))
+    codes = np.random.RandomState(seed + 1).randint(0, 4, (batch, length))
+    return raw, folded, (np.eye(4, dtype=np.uint8) * 4)[codes]
+
+
+def test_encoder_forward_paths_match_jax_tower():
+    """Both forward paths the enc mode times (the kernels' plain versions on
+    the CPU, and the plain stages) equal JAX's apply_encoder_tower on the
+    same folded parameters within 2.0e-6 * max(1, max|ref|) in fp32."""
+    from orca_tpu.nn import encoders as jenc
+    from orca_tpu_torch.models.from_jax import params_from_numpy
+
+    _, folded, seq = _encoder_case(8, 2, 40_000)
+    want = np.asarray(jenc.apply_encoder_tower(
+        jax.tree.map(jnp.asarray, folded), jnp.asarray(seq)))
+    tf = params_from_numpy(folded, "cpu")
+    with torch.inference_mode():
+        for fn in (bench_training.encoder_forward,
+                   bench_training.encoder_forward_stages):
+            got = fn(tf, torch.from_numpy(seq)).numpy()
+            assert got.shape == want.shape == (2, 10, 128)
+            d = np.abs(got - want).max()
+            assert d <= 2.0e-6 * max(1.0, np.abs(want).max()), (fn, d)
+
+
+def _jax_encoder_train_step(p, s):
+    """The JAX script's `train_step` (scripts/bench_training.py) with its
+    two float32 casts made to the parameters' dtype, which is what they are
+    in fp32: the input's (exact; JAX's conv refuses float32 input with
+    float64 weights) and the loss's (a float32 loss would round the float64
+    step's)."""
+    from orca_tpu.nn import encoders as jenc
+    from orca_tpu.nn.core import BNUpdates
+
+    dtype = jax.tree.leaves(p)[0].dtype
+
+    def loss(p):
+        bn = BNUpdates()
+        out = jenc.apply_encoder_stages(
+            p, s.astype(dtype) * 0.25, train=True,
+            rng=jax.random.PRNGKey(0), bn_updates=bn, path="encoder",
+        )
+        return jnp.mean(out.astype(dtype) ** 2)
+
+    l, g = jax.value_and_grad(loss)(p)
+    return l, jax.tree.map(lambda a: jnp.sum(a), g)
+
+
+def test_encoder_train_step_matches_jax_float64():
+    """The enc mode's training step (live BatchNorm, fwd + bwd) in float64:
+    the loss and every leaf's gradient sum within 1e-9 * max(1, |ref|) of
+    the JAX script's step. The tower draws nothing (no dropout)."""
+    from orca_tpu_torch.models.from_jax import params_from_numpy
+
+    raw, _, seq = _encoder_case(9, 2, 24_000)
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        p64 = jax.tree.map(lambda a: jnp.asarray(a, jnp.float64), raw)
+        wl, wg = jax.jit(_jax_encoder_train_step)(p64, jnp.asarray(seq))
+        wl, wg = float(wl), [float(v) for v in jax.tree.leaves(wg)]
+    finally:
+        jax.config.update("jax_enable_x64", x64)
+    gl, gg = bench_training.encoder_train_step(
+        params_from_numpy(raw, "cpu", torch.float64), torch.from_numpy(seq))
+    # jax.tree.leaves' order (dict keys sorted) on both trees
+    gg = jax.tree.leaves(jax.tree.map(float, gg))
+    assert abs(float(gl) - wl) <= 1e-9 * max(1.0, abs(wl)), (float(gl), wl)
+    assert len(gg) == len(wg)
+    for i, (g, w) in enumerate(zip(gg, wg)):
+        assert abs(g - w) <= 1e-9 * max(1.0, abs(w)), (i, g, w)
+
+
+def test_bench_encoder_paths_returns_the_jax_keys():
+    got = bench_training.bench_encoder_paths(batch=1, seq_len=24_000,
+                                             iters=1, device="cpu")
+    want = _assigned_keys(REPO / "scripts" / "bench_training.py",
+                          "bench_encoder_paths")
+    assert set(got) == want
+    for key, value in got.items():
+        assert math.isfinite(value) and value > 0, (key, value)
+    assert got["enc_pallas_vs_xla_fwd"] == pytest.approx(
+        got["enc_fwd_xla_s"] / got["enc_fwd_pallas_s"])
+
+
+def test_bench_training_main_takes_enc(monkeypatch, capsys):
+    """`python -m orca_tpu_torch.bench_training enc` runs the enc mode (its
+    function replaced: main resolves the card) and prints its line; an
+    unknown mode still exits 2."""
+    monkeypatch.setattr(bench_training, "resolve_device",
+                        lambda d: torch.device("cpu"))
+    monkeypatch.setattr(bench_training.torch.cuda, "get_device_name",
+                        lambda d: "stand-in card")
+    monkeypatch.setattr(bench_training, "bench_encoder_paths",
+                        lambda: {"enc_fwd_pallas_s": 1.0})
+    assert bench_training.main(["enc"]) == 0
+    line = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert line == {"device": "stand-in card", "enc_fwd_pallas_s": 1.0}
+    assert bench_training.main(["enc,d"]) == 2
+
+
+# --------------------------------------------------------------------------
+# scripts/bench_256m.py
+# --------------------------------------------------------------------------
+
+
+def _bench_256m_source():
+    tree = ast.parse((REPO / "scripts" / "bench_256m.py").read_text())
+    return next(n for n in tree.body
+                if isinstance(n, ast.FunctionDef) and n.name == "main")
+
+
+def test_bench_256m_times_the_bench_window():
+    """The JAX script's window (its chromosome length, zoom and window
+    positions, read from its source) is the one `bench._measure_256m` times
+    at production geometry, which the port's bench_256m reuses."""
+    values = {}
+    for node in ast.walk(_bench_256m_source()):
+        if (isinstance(node, ast.Assign) and isinstance(node.targets[0],
+                                                         ast.Name)
+                and node.targets[0].id in ("chrlen", "mpos", "wpos")):
+            expr = node.value
+            if isinstance(expr, ast.Call):  # jnp.float32(...)
+                expr = expr.args[0]
+            values[node.targets[0].id] = eval(compile(ast.Expression(expr),
+                                                      "bench_256m", "eval"))
+    assert values["chrlen"] == bench._chrlen(tms.GEOM_256M)
+    assert values["mpos"] == tms.GEOM_256M.window_bp / 4
+    assert values["wpos"] == tms.GEOM_256M.window_bp / 2
+
+
+def test_bench_256m_prints_the_jax_line(monkeypatch, capsys):
+    from orca_tpu_torch.scripts import bench_256m
+
+    _stand_in_encodings(monkeypatch)
+    monkeypatch.setenv("ORCA_BENCH_ITERS", "1")
+    monkeypatch.delenv("ORCA_BENCH_DTYPE", raising=False)
+    calls = []
+    real = bench_256m._measure_256m
+
+    def measured(*args):
+        calls.append(args)
+        return real(*args)
+
+    monkeypatch.setattr(bench_256m, "_measure_256m", measured)
+    line = bench_256m.main(GEOM256_T, device="cpu")
+    assert calls == [("bfloat16", 1, GEOM256_T, torch.device("cpu"))]
+    assert json.loads(capsys.readouterr().out.splitlines()[-1]) == line
+    keys = next(n for n in ast.walk(_bench_256m_source())
+                if isinstance(n, ast.Dict))
+    assert set(line) == {k.value for k in keys.keys} | {"power_limit_w"}
+    assert line["device"] == "cpu" and line["power_limit_w"] is None
+    assert line["dtype"] == "bfloat16"
+    assert line["value"] == pytest.approx(
+        GEOM256_T.window_bp / 1e6 / line["seconds_per_256Mb_window"])
+    for key in ("value", "seconds_per_256Mb_window", "compile_s"):
+        assert math.isfinite(line[key]) and line[key] > 0, key
+

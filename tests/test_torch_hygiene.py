@@ -1,7 +1,8 @@
 """The port stands alone: orca_tpu_torch, chip_smoke.py and the port's card
-scripts import neither JAX nor anything of orca_tpu, the port's entry points
-(load_resources and the process_* pipelines included) run on CUDA unless the
-caller asks for the CPU, the prediction API and the plots import without
+scripts import neither JAX nor anything of orca_tpu, every driver of the
+JAX package has its counterpart in the port or a reason why not, the port's
+entry points (load_resources, the process_* pipelines and the scripts
+included) run on CUDA unless the caller asks for the CPU, the prediction API and the plots import without
 matplotlib, and a 256 Mb bundle pickled by the JAX package loads into the
 port's class without it. Every public name an `orca_tpu/**/__init__.py`
 binds exists on the matching orca_tpu_torch module, and `set_config`
@@ -54,7 +55,11 @@ def test_command_line_and_1m_family_are_checked_sources():
                 "utils/logging.py", "data/sampler.py", "data/pipeline.py",
                 "parallel/mesh.py", "parallel/sequence.py",
                 "utils/profiling.py", "data/native.py", "bench.py",
-                "bench_training.py"):
+                "bench_training.py", "scripts/_common.py",
+                "scripts/bench_serve_screen.py", "scripts/measure_loader.py",
+                "scripts/profile_cascade.py", "scripts/probe_two_model.py",
+                "scripts/probe_decoder.py", "scripts/smoke_e2e.py",
+                "scripts/bench_256m.py"):
         assert PORT / rel in sources, rel
 
 
@@ -80,6 +85,45 @@ def test_every_jax_module_has_a_counterpart(rel):
 
 def test_unported_modules_are_jax_modules():
     assert sorted(UNPORTED) == sorted(set(UNPORTED) & set(JAX_MODULES))
+
+
+# The JAX package's drivers with no counterpart in the port, each with why.
+UNPORTED_SCRIPTS = {
+    "scripts/baseline_torch.py": "drives the original Orca's torch modules "
+                                 "from a reference checkout the repository "
+                                 "lacks (ROADMAP A17's blocker)",
+    "scripts/profile_compile.py": "times XLA's lowering and compilation; the "
+                                  "port compiles nothing but its nvcc build, "
+                                  "which bench's compile_s reports",
+    "scripts/profile_pallas_compile.py": "times the Pallas kernels' lowering "
+                                         "and compilation, as above",
+    "scripts/probe_stage_kernels.py": "times the Pallas kernels per stage: "
+                                      "chip_smoke.py phase 3's stage lines "
+                                      "and scripts/bench_conv_chain.py do "
+                                      "that for the CUDA kernels",
+}
+JAX_SCRIPTS = sorted(
+    str(p.relative_to(REPO)) for p in [REPO / "bench.py",
+                                       *(REPO / "scripts").glob("*.py")]
+    if "orca_tpu" in _imported_roots(p))
+SCRIPT_COUNTERPARTS = {"bench.py": "bench.py",
+                       "scripts/bench_training.py": "bench_training.py"}
+
+
+@pytest.mark.parametrize("rel", JAX_SCRIPTS)
+def test_every_jax_script_has_a_counterpart(rel):
+    """Each driver of the JAX package (bench.py, and each scripts/*.py that
+    imports orca_tpu) has its counterpart in the port (orca_tpu_torch/
+    bench.py, bench_training.py or scripts/<name>), or is listed in
+    UNPORTED_SCRIPTS with its reason (and then has none)."""
+    counterpart = PORT / SCRIPT_COUNTERPARTS.get(rel, rel)
+    assert counterpart.exists() != (rel in UNPORTED_SCRIPTS), rel
+
+
+def test_unported_scripts_are_jax_scripts():
+    assert len(JAX_SCRIPTS) == 13
+    assert sorted(UNPORTED_SCRIPTS) == sorted(
+        set(UNPORTED_SCRIPTS) & set(JAX_SCRIPTS))
 
 
 @pytest.mark.parametrize("path", sorted(p for p in PORT.rglob("*")
@@ -408,3 +452,27 @@ def test_training_entry_points_need_cuda_unless_told_cpu(tmp_path):
 
     with pytest.raises(RuntimeError, match="CUDA"):
         bench_training.bench_stage_a()
+
+
+def test_scripts_need_cuda_unless_told_cpu():
+    """Every script's entry point takes device=None as CUDA and raises
+    without it, before it builds or starts anything."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA")
+    from orca_tpu_torch import bench_training
+    from orca_tpu_torch.scripts import (
+        bench_256m,
+        bench_serve_screen,
+        measure_loader,
+        probe_decoder,
+        probe_two_model,
+        profile_cascade,
+        smoke_e2e,
+    )
+
+    for fn in (bench_serve_screen.main, measure_loader.main,
+               bench_training.bench_encoder_paths, profile_cascade.main,
+               probe_two_model.main, probe_decoder.main, smoke_e2e.main,
+               bench_256m.main):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn()
