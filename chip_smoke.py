@@ -26,7 +26,9 @@ Phases (any failure exits non-zero before the final line):
      checked against a host float32 recomputation and the maps checked
      finite and symmetric;
      then the encoder alone, for the encoder/decoder split; then the whole
-     cascade on the card against the CPU plain path on a small window;
+     cascade on the card against the CPU plain path on a small window (held
+     to 1e-4, and printed beside the port's fp32 bar of 2.0e-6 against the
+     JAX package, BAR_FP32);
  4b. sequence-sharded inference ("sharded"): `genomepredict` at the first
      zoom target with `make_mesh((1, 2))` and `make_mesh((2, 2))` over
      cuda:0 named 2 and 4 times (one card: the shards run one after another,
@@ -61,7 +63,8 @@ Phases (any failure exits non-zero before the final line):
      recomputation with the clamp, the maps checked finite, symmetric and
      250x250 and the end coordinates inside the chromosome; then the
      encoder alone, for the split; then the 256 Mb cascade on the card
-     against the CPU plain path on an 8.192 Mb window;
+     against the CPU plain path on an 8.192 Mb window (held to 1e-4, and
+     printed beside BAR_FP32);
  5b. one bf16 `genomepredict_256mb` with a (1, 2) mesh of cuda:0 on the
      same window (`sharded256` line): launches checked against the shards'
      group plan, starts equal to the unsharded request's, maps within twice
@@ -173,7 +176,10 @@ Phases (any failure exits non-zero before the final line):
      equal to the sections' requests and steps times the tower's groups;
      the bf16 and fp32 seconds a 32 Mb window within 0.5-2x of phase 4's
      warm request less the sequence's copy to the card (the benchmark's
-     sequence is on the card before timing);
+     sequence is on the card before timing); then the warm-up in the JAX
+     package's call forms on the benchmark's two bf16 models:
+     `warmup_cascade_32m(model0, GEOM_32M, 1)` and `(model1, GEOM_32M,
+     n=2)`, their seconds positive and their launches those of 2 and 4 rows;
  13. the JAX package's drivers ("driver" lines), each through its entry
      point on the card at a reduced count, the counters set to 0 just
      before each in-process driver and its launches per dtype checked
@@ -224,6 +230,9 @@ WPOS_256 = 128_000_000
 ZOOM_TARGETS_256 = (64_000_000, 143_000_000)
 ONE_MB_WINDOW = 1_000_000  # the standalone 1 Mb model's window
 CODEC_BP = 32_000_000  # the codec phase's window: one 32 Mb request's
+# the port's fp32 bar against the JAX package (ROADMAP's North star),
+# printed beside the card-vs-CPU figures, which are held to 1e-4
+BAR_FP32 = 2.0e-6
 
 # Published dense peaks (NVIDIA data sheets): (bf16 FLOP/s, fp32 FLOP/s on
 # the CUDA cores, memory bytes/s), keyed by a substring of the card's name.
@@ -2456,7 +2465,34 @@ def bench_phase(torch, cc, seq, request_s):
     for dtype, r in ratios.items():
         check(BENCH_RATIO[0] <= r <= BENCH_RATIO[1],
               f"bench: {dtype} window {r:.3f}x phase 4's request")
+    for k, v in warmup_jax_forms(torch, cc).items():
+        got["bfloat16"][k] += v
     return got
+
+
+def warmup_jax_forms(torch, cc):
+    """The warm-ups in the JAX package's call forms on the benchmark's two
+    bf16 models: n=1 positionally, then n=2 (one request on 2n rows).
+    Returns their launches."""
+    from orca_tpu_torch import bench
+    from orca_tpu_torch.nn.encoders import fused_group_count
+    from orca_tpu_torch.predict import multiscale as ms
+
+    models = bench._bundles("bfloat16", range(2), ms.GEOM_32M, "cuda")
+    reset_counters(cc)
+    secs = [ms.warmup_cascade_32m(models[0], ms.GEOM_32M, 1),
+            ms.warmup_cascade_32m(models[1], ms.GEOM_32M, n=2)]
+    counts = counters(cc)
+    groups = fused_group_count(2, ms.GEOM_32M.window_bp) + fused_group_count(
+        4, ms.GEOM_32M.window_bp)
+    want = {"fused_first_stage": groups, "fused_conv_chain": 6 * groups}
+    print(f"warmup (JAX's call forms): (model0, GEOM_32M, 1) "
+          f"{secs[0]:.4f} s, (model1, GEOM_32M, n=2) {secs[1]:.4f} s, "
+          f"launches {counts} (expected {want})", flush=True)
+    check(all(isinstance(s, float) and s > 0 for s in secs),
+          f"warmup: seconds {secs}")
+    check(counts == want, f"warmup: launches {counts} != {want}")
+    return counts
 
 
 # Phase 13: the JAX package's drivers, each through its entry point on the
@@ -3129,8 +3165,8 @@ def main() -> int:
 
     # the whole cascade on the card against the CPU plain path, small window
     small = ms.CascadeGeometry(1_024_000, 4000, 8)
-    cpu_b = zoo.fold_bundle(zoo.random_32m_bundle(SEED + 2, "cpu", nbins=256,
-                                                  crop=8))
+    cpu_b = zoo.fold_bundle(zoo.random_32m_bundle(SEED + 2, nbins=256, crop=8,
+                                                  device="cpu"))
     gpu_b = zoo._map_params(cpu_b, lambda t: t.cuda())
     sseq = (np.eye(4, dtype=np.uint8)[codes[: small.window_bp]] * 4)[None]
     a = ms.genomepredict(sseq, "c", 400_000, 512_000, [gpu_b], geometry=small)
@@ -3141,7 +3177,8 @@ def main() -> int:
                                                 b["predictions"][0]))
     m = max(np.abs(q).max() for q in b["predictions"][0])
     print(f"small window fp32 card vs CPU plain: max|d| {d:.3e} "
-          f"max|ref| {m:.3e}", flush=True)
+          f"max|ref| {m:.3e}; bar {BAR_FP32:.1e}: "
+          f"{'under' if d <= BAR_FP32 else 'over'}", flush=True)
     check(d <= 1e-4 * max(1.0, m), f"small window: max|d| {d}")
 
     # 4b. the sequence-sharded path, on meshes that name cuda:0 2 and 4
@@ -3316,7 +3353,8 @@ def main() -> int:
 
     # the 256 Mb cascade on the card against the CPU plain path, 8.192 Mb
     small = ms.CascadeGeometry(8_192_000, 32_000, 8)
-    cpu_b = zoo.fold_256m_bundle(zoo.random_256m_bundle(SEED + 3, "cpu"))
+    cpu_b = zoo.fold_256m_bundle(zoo.random_256m_bundle(SEED + 3,
+                                                        device="cpu"))
     gpu_b = zoo._map_params(cpu_b, lambda t: t.cuda())
     schr = int(small.window_bp * 0.75) // small.bin_bp * small.bin_bp
     snm = retrieval.assemble_normmat(
@@ -3342,7 +3380,8 @@ def main() -> int:
     m = max(np.abs(q).max() for q in b["predictions"][0])
     print(f"8.192 Mb window 256 Mb cascade fp32 card vs CPU plain: max|d| "
           f"{d:.3e} max|ref| {m:.3e}, starts {a['start_coords']} equal "
-          f"(CPU {cpu_s:.1f} s on {len(os.sched_getaffinity(0))} threads)",
+          f"(CPU {cpu_s:.1f} s on {len(os.sched_getaffinity(0))} threads); "
+          f"bar {BAR_FP32:.1e}: {'under' if d <= BAR_FP32 else 'over'}",
           flush=True)
     check(d <= 1e-4 * max(1.0, m), f"8.192 Mb window: max|d| {d}")
     del cpu_b, gpu_b, seq256, normmats

@@ -117,7 +117,7 @@ def _measure(dtype: str, seq: torch.Tensor, mpos, wpos, iters: int,
         return _run_32m(bundles, geometry, seq, mpos, wpos, log_normmats)
 
     t0 = time.perf_counter()
-    warmup_cascade_32m(bundles[0], geometry, device=device)
+    warmup_cascade_32m(bundles[0], geometry, n=1, device=device)
     run()
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -176,7 +176,7 @@ def _measure_256m(dtype: str, iters: int,
         return _run_256m(bundle, geometry, seq, normmat)
 
     t0 = time.perf_counter()
-    warmup_cascade_256m(bundle, geometry, device=device)
+    warmup_cascade_256m(bundle, geometry, n=1, device=device)
     run()
     compile_s = time.perf_counter() - t0
     t0 = time.perf_counter()

@@ -86,7 +86,7 @@ def bench_stage_a(batch=4, iters=6, dtype="float32", cfg=None, device=None):
     small on the CPU."""
     device = resolve_device(device)
     cfg = cfg or StageAConfig(num_1d=32)
-    opt, step = make_stage_a_step(cfg, device)
+    opt, step = make_stage_a_step(cfg, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     params = tree_map(lambda t: t.to(getattr(torch, dtype)),
                       decoders.init_net(gen, num_1d=cfg.num_1d))

@@ -203,7 +203,8 @@ def _set_seq_shards(args, parser, meshes=None):
     mesh = meshes.get(key) if meshes is not None else None
     if mesh is None:
         try:
-            mesh = inference_mesh_from_seq_shards(args.seq_shards, device)
+            mesh = inference_mesh_from_seq_shards(args.seq_shards,
+                                                  device_type=device)
         except (ValueError, RuntimeError) as e:
             parser.error(str(e))
         if meshes is not None:

@@ -75,7 +75,8 @@ def _convert_unit(sd: Dict, prefix: str, idx: int, unit: Unit,
     return p, idx
 
 
-def convert_block(sd: Dict, prefix: str, block: Block, device=None) -> list:
+def convert_block(sd: Dict, prefix: str, block: Block, *,
+                  device=None) -> list:
     """Convert a torch nn.Sequential at `prefix` (e.g. 'lconv1.') to Block
     params."""
     device = resolve_device(device)
@@ -87,16 +88,17 @@ def convert_block(sd: Dict, prefix: str, block: Block, device=None) -> list:
     return params
 
 
-def convert_encoder_tower(sd: Dict, prefix: str = "", device=None) -> dict:
+def convert_encoder_tower(sd: Dict, prefix: str = "", *,
+                          device=None) -> dict:
     sd = strip_module_prefix(sd)
     spec = encoders.encoder_tower_spec()
     return {
         "lconv": [
-            convert_block(sd, f"{prefix}lconv{i + 1}.", b, device)
+            convert_block(sd, f"{prefix}lconv{i + 1}.", b, device=device)
             for i, b in enumerate(spec["lconv"])
         ],
         "conv": [
-            convert_block(sd, f"{prefix}conv{i + 1}.", b, device)
+            convert_block(sd, f"{prefix}conv{i + 1}.", b, device=device)
             for i, b in enumerate(spec["conv"])
         ],
     }
@@ -111,13 +113,13 @@ _PYRAMID_TORCH_NAMES = {
 
 
 def convert_pyramid(sd: Dict, levels: int, up_pass: bool, prefix: str = "",
-                    device=None) -> dict:
+                    *, device=None) -> dict:
     sd = strip_module_prefix(sd)
     spec = encoders.pyramid_spec(levels, up_pass)
     return {
         name: [
             convert_block(sd, f"{prefix}{_PYRAMID_TORCH_NAMES[name]}.{i}.", b,
-                          device)
+                          device=device)
             for i, b in enumerate(blocks)
         ]
         for name, blocks in spec.items()
@@ -131,38 +133,40 @@ def _convert_2d_stack(sd: Dict, spec: dict, prefix: str, device) -> dict:
     out = {}
     for name, node in spec.items():
         if isinstance(node, Block):
-            out[name] = convert_block(sd, f"{prefix}{name}.", node, device)
+            out[name] = convert_block(sd, f"{prefix}{name}.", node,
+                                      device=device)
         else:
             out[name] = [
-                convert_block(sd, f"{prefix}{name}.{i}.", b, device)
+                convert_block(sd, f"{prefix}{name}.{i}.", b, device=device)
                 for i, b in enumerate(node)
             ]
     return out
 
 
-def convert_decoder(sd: Dict, num_2d: int = 1, prefix: str = "",
+def convert_decoder(sd: Dict, num_2d: int = 1, prefix: str = "", *,
                     device=None) -> dict:
     return _convert_2d_stack(sd, decoders.decoder_spec(num_2d), prefix, device)
 
 
-def convert_decoder1m(sd: Dict, num_2d: int = 1, prefix: str = "",
+def convert_decoder1m(sd: Dict, num_2d: int = 1, prefix: str = "", *,
                       device=None) -> dict:
     return _convert_2d_stack(sd, decoders.decoder1m_spec(num_2d), prefix,
                              device)
 
 
 def convert_net(sd: Dict, num_1d: Optional[int] = None, num_2d: int = 1,
-                prefix: str = "", device=None) -> dict:
+                prefix: str = "", *, device=None) -> dict:
     """Convert a stage-a `Net` statedict (also the file the 32 Mb models
     carve their tower and `Decoder_1m` out of)."""
     sd = strip_module_prefix(sd)
     params = {
-        "encoder": convert_encoder_tower(sd, prefix, device),
-        "decoder": convert_decoder1m(sd, num_2d, prefix, device),
+        "encoder": convert_encoder_tower(sd, prefix, device=device),
+        "decoder": convert_decoder1m(sd, num_2d, prefix, device=device),
     }
     if num_1d:
         params["final_1d"] = convert_block(
-            sd, f"{prefix}final_1d.", decoders.final1d_spec(num_1d), device
+            sd, f"{prefix}final_1d.", decoders.final1d_spec(num_1d),
+            device=device
         )
     return params
 

@@ -139,9 +139,10 @@ def _map_params(bundle, fn):
     })
 
 
-def random_32m_bundle(seed: int = 0, device=None, *, name: str = "random",
+def random_32m_bundle(seed: int = 0, name: str = "random",
                       upsample_mode: str = "bilinear", up_pass: bool = True,
-                      nbins: int = 8000, crop: int = 250) -> ModelBundle:
+                      nbins: int = 8000, crop: int = 250, *,
+                      device=None) -> ModelBundle:
     """A 32 Mb bundle with torch's default conv init from `seed` (float32,
     BatchNorm unfolded), on `device` (None = CUDA)."""
     device = resolve_device(device)
@@ -161,8 +162,8 @@ def random_32m_bundle(seed: int = 0, device=None, *, name: str = "random",
     return _map_params(bundle, lambda t: t.to(device))
 
 
-def random_256m_bundle(seed: int = 0, device=None, *,
-                       name: str = "random_256m") -> Model256MBundle:
+def random_256m_bundle(seed: int = 0, name: str = "random_256m", *,
+                       device=None) -> Model256MBundle:
     """A 256 Mb bundle with torch's default conv init from `seed` (float32,
     BatchNorm unfolded), on `device` (None = CUDA). The cis background is a
     smooth decay over 8000 bins of 32 kb with a NaN tail, as the JAX
@@ -261,7 +262,7 @@ def save_bundle(bundle, path: str) -> None:
         pickle.dump(host, f)
 
 
-def load_bundle(path: str, device=None, dtype: Optional[str] = None):
+def load_bundle(path: str, *, device=None, dtype: Optional[str] = None):
     """Read a bundle pickled by `save_bundle` or by the JAX package's
     `zoo.save_bundle` (see models.from_jax.load_bundle)."""
     from orca_tpu_torch.models.from_jax import load_bundle as _load
@@ -288,7 +289,7 @@ def _statedict(model_dir: str, stem: str) -> dict:
 
 def load_32m_bundle(model_dir: str, resource_dir: str, name: str,
                     fold: bool = True, nbins: int = 8000, crop: int = 250,
-                    device=None) -> ModelBundle:
+                    *, device=None) -> ModelBundle:
     """A 1-32 Mb bundle ('h1esc', 'hff' or 'hctnoc') from the reference's
     statedicts: the pyramid from orca_<name>.net, the tower and the
     `Decoder_1m` head from the stage-a Net in orca_<name>.net0, one decoder
@@ -330,7 +331,8 @@ def load_32m_bundle(model_dir: str, resource_dir: str, name: str,
 
 
 def load_256m_bundle(model_dir: str, resource_dir: str, name: str,
-                     fold: bool = True, device=None) -> Model256MBundle:
+                     fold: bool = True, *,
+                     device=None) -> Model256MBundle:
     """A 32-256 Mb bundle ('h1esc' or 'hff'): the 3-level pyramid from
     orca_<name>_256m.net and its decoders from orca_<name>_256m.d<level>;
     the tower and the 5-level pyramid are the 32 Mb model's (orca_<name>.net0
@@ -366,7 +368,7 @@ def load_256m_bundle(model_dir: str, resource_dir: str, name: str,
     return fold_256m_bundle(bundle) if fold else bundle
 
 
-def load_1m_bundle(model_dir: str, resource_dir: str, name: str,
+def load_1m_bundle(model_dir: str, resource_dir: str, name: str, *,
                    device=None) -> Model1MBundle:
     """A standalone 1 Mb bundle ('h1esc': 32 tracks, 'hff': 22) from the
     stage-a Net in orca_<name>.net0, float32 on `device` (None = CUDA) and
@@ -424,7 +426,7 @@ def multi_normmats_from_expectations(expected_logs, levels=LEVELS_32M,
 
 
 def load_leukemia_bundle(model_dir: str, resource_dir: str, name: str,
-                         fold: bool = True, device=None) -> ModelBundle:
+                         fold: bool = True, *, device=None) -> ModelBundle:
     """A multi-cell-type leukemia bundle: 'leukemiaA' (2 heads) or
     'leukemiaB' (6 heads), laid out in files as the 32 Mb models are. Its
     pyramid has no upward pass, its decoders upsample nearest and take one
@@ -465,9 +467,9 @@ def load_leukemia_bundle(model_dir: str, resource_dir: str, name: str,
     return fold_bundle(bundle) if fold else bundle
 
 
-def random_leukemia_bundle(seed: int = 0, num_2d: int = 2, device=None, *,
+def random_leukemia_bundle(seed: int = 0, num_2d: int = 2,
                            name: str = "random_leukemia", nbins: int = 8000,
-                           crop: int = 250) -> ModelBundle:
+                           crop: int = 250, *, device=None) -> ModelBundle:
     """A leukemia-family bundle with torch's default conv init from `seed`
     (float32, BatchNorm unfolded) on `device` (None = CUDA), with the JAX
     package's smooth per-head backgrounds."""

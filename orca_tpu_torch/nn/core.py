@@ -111,7 +111,7 @@ class BNUpdates:
     or None for one process; with a group, batch statistics and dropout
     masks are the global batch's."""
 
-    def __init__(self, momentum: float = 0.1, group=None):
+    def __init__(self, momentum: float = 0.1, *, group=None):
         self.momentum = momentum
         self.group = group
         self.updates = {}  # path -> (new running mean, new running var)

@@ -52,10 +52,27 @@ def _result_dtype(*ts) -> torch.dtype:
     return dtype
 
 
+def _check_precision(precision) -> None:
+    """The JAX package's `precision=` of a conv, read without jax: None, a
+    name, a `lax.Precision` member (read by its name) or a pair of them. The
+    port's float32 convs always run at full float32 (HIGHEST); a precision
+    that would let TF32 or bf16 passes in raises rather than be ignored."""
+    pair = precision if isinstance(precision, (tuple, list)) else (precision,)
+    for p in pair:
+        if p is None:
+            continue
+        if str(getattr(p, "name", p)).lower() != "highest":
+            raise ValueError(
+                f"precision={precision!r}: the port's convs run at full "
+                "float32 only (None or 'highest')")
+
+
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, dilation: int = 1) -> torch.Tensor:
+           *, dilation: int = 1, precision=None) -> torch.Tensor:
     """torch Conv1d with 'same' padding for odd k. x (N, L, Cin), w (K, Cin,
-    Cout), b (Cout,) -> (N, L, Cout)."""
+    Cout), b (Cout,) -> (N, L, Cout). precision: None or 'highest' (see
+    `_check_precision`)."""
+    _check_precision(precision)
     dtype = _result_dtype(x, w, b)
     pad = dilation * (w.shape[0] - 1) // 2
     wt = w.to(dtype).permute(2, 1, 0)
@@ -67,9 +84,10 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           *, dilation: int = 1) -> torch.Tensor:
+           *, dilation: int = 1, precision=None) -> torch.Tensor:
     """torch Conv2d with 'same' padding for odd k. x (N, H, W, Cin), w (Kh,
-    Kw, Cin, Cout), b (Cout,) -> (N, H, W, Cout)."""
+    Kw, Cin, Cout), b (Cout,) -> (N, H, W, Cout). precision: as `conv1d`."""
+    _check_precision(precision)
     dtype = _result_dtype(x, w, b)
     ph = dilation * (w.shape[0] - 1) // 2
     pw = dilation * (w.shape[1] - 1) // 2
@@ -85,10 +103,14 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     return out.permute(0, 2, 3, 1)
 
 
-def maxpool1d(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Max pooling over the length axis of (N, L, C) with stride k; torch
-    MaxPool1d defaults (no padding, floor length)."""
+def maxpool1d(x: torch.Tensor, k: int,
+              stride: Optional[int] = None) -> torch.Tensor:
+    """Max pooling over the length axis of (N, L, C) with stride `stride`
+    (None = k); torch MaxPool1d defaults (no padding, floor length)."""
+    stride = stride or k
     n, length, c = x.shape
+    if stride != k:
+        return x.unfold(1, k, stride).amax(dim=3)
     m = length // k
     return x[:, : m * k].reshape(n, m, k, c).amax(dim=2)
 
@@ -99,7 +121,7 @@ def batchnorm(x, scale, bias, mean, var, eps: float = BN_EPS):
     return x * inv + (bias - mean * inv)
 
 
-def batchnorm_train(x: torch.Tensor, scale, bias, eps: float = BN_EPS,
+def batchnorm_train(x: torch.Tensor, scale, bias, eps: float = BN_EPS, *,
                     group=None):
     """Training-mode BatchNorm over all axes but the last.
 

@@ -122,7 +122,7 @@ def get_inference_mesh() -> Optional[Mesh]:
     return _INFERENCE_MESH
 
 
-def inference_mesh_from_seq_shards(seq_shards: int,
+def inference_mesh_from_seq_shards(seq_shards: int, *,
                                    device_type: str = "cuda") -> Mesh:
     """All-devices mesh with `seq_shards` sequence shards (the remaining
     devices go to 'data' for batched window screening); `device_type` "cpu"

@@ -36,7 +36,7 @@ _local_rank = 0  # this process's index on its host, set by initialize
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
-               process_id: Optional[int] = None,
+               process_id: Optional[int] = None, *,
                backend: Optional[str] = None) -> None:
     """Join the process group. Arguments left out are read from torchrun's
     environment (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK;
@@ -189,7 +189,7 @@ class DataGroup:
 
 
 def make_multihost_mesh(seq_per_host: int = 1,
-                        axis_names: Tuple[str, str] = ("data", "seq"),
+                        axis_names: Tuple[str, str] = ("data", "seq"), *,
                         device_type: str = "cuda") -> mesh_lib.Mesh:
     """This process's row of a (data, seq) mesh whose 'data' axis is the
     process group: cuda:[local_rank·M, (local_rank+1)·M) for M =
@@ -224,13 +224,20 @@ def local_batch_slice(global_batch: int) -> slice:
     return slice(start, start + per)
 
 
-def shard_batch(mesh: mesh_lib.Mesh, *arrays, global_batch: bool = True):
+def shard_batch(mesh: mesh_lib.Mesh, *arrays, batch_axis: str = "data",
+                global_batch: bool = True):
     """numpy batches -> this process's rows as tensors on its first device.
 
     global_batch=True (the trainer path): every process passes the same
     global batch and keeps its local_batch_slice, so an N-process run sees
     the one-process run's batch. global_batch=False: each process passes
-    its own rows."""
+    its own rows. batch_axis: the mesh's first axis, the one the process
+    group spans (a batch is split over processes, not over one process's
+    cards); another axis raises."""
+    if batch_axis != mesh.axis_names[0]:
+        raise ValueError(
+            f"batch_axis={batch_axis!r}: batches are split over the mesh's "
+            f"first axis {mesh.axis_names[0]!r} only")
     device = mesh.device()
     out = []
     for arr in arrays:
@@ -241,11 +248,12 @@ def shard_batch(mesh: mesh_lib.Mesh, *arrays, global_batch: bool = True):
     return out[0] if len(out) == 1 else tuple(out)
 
 
-def fetch_global(t: torch.Tensor, mesh: Optional[mesh_lib.Mesh] = None
-                 ) -> np.ndarray:
+def fetch_global(array: torch.Tensor, *,
+                 mesh: Optional[mesh_lib.Mesh] = None) -> np.ndarray:
     """A data-sharded tensor's global value on the host: every rank's rows
-    in rank order (small validation metrics)."""
+    in rank order (small validation metrics); `mesh` names the process
+    group (None = this process alone)."""
     group = mesh.data_group if mesh is not None else None
     if group is not None:
-        t = group.gather(t)
-    return t.detach().cpu().numpy()
+        array = group.gather(array)
+    return array.detach().cpu().numpy()

@@ -187,48 +187,74 @@ def _cascade_32mb(bundle: ModelBundle, geom: CascadeGeometry, seq, mpos, wpos,
     return torch.stack(preds), torch.stack([s[0] for s in starts])
 
 
-def _zero_window(geometry: CascadeGeometry, device) -> torch.Tensor:
-    return torch.zeros((1, geometry.window_bp, 4), dtype=torch.uint8,
-                       device=device)
+def _warmup_dtype(seq_dtype) -> torch.dtype:
+    """A warm-up's `seq_dtype` as a torch dtype: a torch dtype, or anything
+    numpy reads as one (np.uint8, "float32", a JAX scalar type); uint8 is
+    the packed quarter-scale one-hot, a float dtype the one-hot itself."""
+    if isinstance(seq_dtype, torch.dtype):
+        dtype = seq_dtype
+    else:
+        try:
+            name = np.dtype(seq_dtype).name
+        except TypeError:
+            name = str(seq_dtype)
+        dtype = getattr(torch, name, None)
+    if dtype != torch.uint8 and not (isinstance(dtype, torch.dtype)
+                                     and dtype.is_floating_point):
+        raise ValueError(f"seq_dtype={seq_dtype!r}: a window is uint8 "
+                         "(packed) or a float one-hot")
+    return dtype
+
+
+def _zero_window(geometry: CascadeGeometry, device, n: int,
+                 seq_dtype) -> torch.Tensor:
+    """`n` all-zero windows, (n, window_bp, 4), on `device`."""
+    return torch.zeros((n, geometry.window_bp, 4),
+                       dtype=_warmup_dtype(seq_dtype), device=device)
 
 
 def warmup_cascade_32m(bundle: ModelBundle,
-                       geometry: CascadeGeometry = GEOM_32M,
-                       device=None, mesh: Optional[Mesh] = None) -> float:
+                       geom: CascadeGeometry = GEOM_32M,
+                       n: int = 1, mesh: Optional[Mesh] = None,
+                       seq_dtype=np.uint8, *, device=None) -> float:
     """Counterpart of the JAX package's program warm-up: torch compiles
-    nothing, so this runs one request on an all-zero packed window at
-    `geometry` (production by default), which pays a process's first-request
-    set-up (cuDNN plans, allocator pools) before a client's first request.
-    The bundle's parameters live on `device` (None = CUDA). `mesh` (None =
-    the inference mesh, `parallel.mesh.get_inference_mesh()`) is the mesh
-    the requests will shard over. Returns the seconds taken."""
+    nothing, so this runs one request on `n` all-zero windows at `geom`
+    (production by default), that is on 2n rows (forward and reverse
+    complement), as the JAX package warms its programs for a batch of 2n.
+    It pays a process's first-request set-up (cuDNN plans for that batch,
+    allocator pools) before a client's first request. `seq_dtype` is the
+    windows' dtype: uint8 (packed quarter-scale, the default) or a float
+    one-hot; numpy and JAX dtypes are read by name. The bundle's parameters
+    live on `device` (None = CUDA). `mesh` (None = the inference mesh,
+    `parallel.mesh.get_inference_mesh()`) is the mesh the requests will
+    shard over. Returns the seconds taken."""
     device = resolve_device(device)
     mesh = mesh if mesh is not None else get_inference_mesh()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        preds, _ = _cascade_32mb(bundle, geometry,
-                                 _zero_window(geometry, device),
-                                 geometry.window_bp // 2,
-                                 geometry.window_bp // 2,
+        preds, _ = _cascade_32mb(bundle, geom,
+                                 _zero_window(geom, device, n, seq_dtype),
+                                 geom.window_bp // 2, geom.window_bp // 2,
                                  bundle.log_normmats(), mesh)
         preds.cpu()
     return time.perf_counter() - t0
 
 
 def warmup_cascade_256m(bundle: Model256MBundle,
-                        geometry: CascadeGeometry = GEOM_256M,
-                        device=None, mesh: Optional[Mesh] = None) -> float:
-    """The 256 Mb counterpart of `warmup_cascade_32m`: one request on an
-    all-zero window with a flat background. Returns the seconds taken."""
+                        geom: CascadeGeometry = GEOM_256M,
+                        n: int = 1, mesh: Optional[Mesh] = None,
+                        seq_dtype=np.uint8, *, device=None) -> float:
+    """The 256 Mb counterpart of `warmup_cascade_32m`: one request on `n`
+    all-zero windows (2n rows) with a flat background. Returns the seconds
+    taken."""
     device = resolve_device(device)
     mesh = mesh if mesh is not None else get_inference_mesh()
     t0 = time.perf_counter()
     with torch.inference_mode():
         preds, _, _ = _cascade_256mb(
-            bundle, geometry, _zero_window(geometry, device),
-            geometry.window_bp // 2, geometry.window_bp // 2,
-            geometry.window_bp,
-            np.ones((geometry.bins, geometry.bins), np.float32), mesh)
+            bundle, geom, _zero_window(geom, device, n, seq_dtype),
+            geom.window_bp // 2, geom.window_bp // 2, geom.window_bp,
+            np.ones((geom.bins, geom.bins), np.float32), mesh)
         preds.cpu()
     return time.perf_counter() - t0
 
@@ -260,8 +286,9 @@ def genomepredict(
     annotation=None,
     nan_thresh: float = 1.0,
     geometry: CascadeGeometry = GEOM_32M,
-    device=None,
     mesh: Optional[Mesh] = None,
+    *,
+    device=None,
 ) -> dict:
     """Multiscale 32 Mb prediction: returns a dict with keys
     predictions/experiments/normmats/start_coords/end_coords/chr/annos.
@@ -511,8 +538,9 @@ def genomepredict_256mb(
     padding_chr: Optional[str] = None,
     nan_thresh: float = 1.0,
     geometry: CascadeGeometry = GEOM_256M,
-    device=None,
     mesh: Optional[Mesh] = None,
+    *,
+    device=None,
 ) -> dict:
     """Multiscale 256 Mb prediction: returns a dict with keys
     predictions/experiments/normmats/start_coords/end_coords/chr/

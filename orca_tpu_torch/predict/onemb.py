@@ -43,7 +43,7 @@ def _net_forward(bundle: Model1MBundle, seq: torch.Tensor, with_1d: bool,
 
 
 def predict_1m(bundle: Model1MBundle, sequence, with_1d: bool = False,
-               rc_average: bool = False, device=None):
+               rc_average: bool = False, *, device=None):
     """(N, 1e6, 4) one-hot (float, or uint8 quarter-scale) -> (N, 250, 250, 1)
     map [+ (N, 250, num_1d) tracks], float32 numpy; the bundle's parameters
     live on `device` (None = CUDA)."""
@@ -63,7 +63,7 @@ def log_fold_map(bundle: Model1MBundle, pred: np.ndarray) -> np.ndarray:
 
 
 def screen_windows(bundle, sequences, batch_size: int = 4, predict_fn=None,
-                   device=None) -> np.ndarray:
+                   *, device=None) -> np.ndarray:
     """Batched screening over many 1 Mb windows: (W, 1e6, 4) -> (W, 250, 250,
     1), in chunks of `batch_size` windows; a short last chunk is padded with
     copies of its last window, whose outputs are dropped."""

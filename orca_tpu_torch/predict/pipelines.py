@@ -171,6 +171,7 @@ def process_region(
     window_radius: int = WR32,
     padding_chr: str = "chr1",
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Multiscale prediction for a reference region (orca_predict.py:983)."""
@@ -230,6 +231,7 @@ def process_dup(
     window_radius: int = WR32,
     padding_chr: str = "chr1",
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Duplication variant prediction (orca_predict.py:1172): ref windows at
@@ -329,6 +331,7 @@ def process_del(
     window_radius: int = WR32,
     padding_chr: str = "chr1",
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Deletion variant prediction (orca_predict.py:1510). On the 256 Mb
@@ -416,6 +419,7 @@ def process_inv(
     window_radius: int = WR32,
     padding_chr: str = "chr1",
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Inversion variant prediction (orca_predict.py:1820): ref and alt
@@ -516,6 +520,7 @@ def process_ins(
     window_radius: int = WR32,
     padding_chr: str = "chr1",
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Insertion variant prediction (orca_predict.py:2178): reference window
@@ -603,6 +608,7 @@ def process_custom(
     show_tracks: bool = False,
     window_radius: int = WR32,
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Arbitrary multi-segment chimeric variant (orca_predict.py:2500).
@@ -687,6 +693,7 @@ def process_single_breakpoint(
     window_radius: int = WR32,
     padding_chr: str = "chr1",
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Translocation / fusion-chromosome prediction (orca_predict.py:2684).
@@ -810,6 +817,7 @@ def process_seqstr(
     file: Optional[str] = None,
     window_radius: int = WR32,
     model_labels: Optional[List[str]] = None,
+    *,
     device=None,
 ):
     """Prediction from a Seqstr sequence string (orca_predict.py:3060).

@@ -65,7 +65,8 @@ def _fold(bundle):
 def load_resources(models=("32M",), model_dir: Optional[str] = None,
                    resource_dir: Optional[str] = None,
                    use_memmapgenome: bool = True,
-                   dtype: Optional[str] = None, device=None) -> OrcaResources:
+                   dtype: Optional[str] = None, *,
+                   device=None) -> OrcaResources:
     """Load requested model families ('32M', '1M', '256M', 'leukemia') onto
     `device` (None = CUDA), plus genome and observed micro-C target handles
     when the resource files exist.

@@ -267,7 +267,7 @@ def mesh_sizes(job: TrainJob) -> dict:
     return {axis: int(sizes.get(axis, 1)) for axis in ("data", "seq")}
 
 
-def build_mesh(job: TrainJob, device=None):
+def build_mesh(job: TrainJob, *, device=None):
     """None for one device. With `multihost`, join the process group
     (torchrun's environment; gloo on the CPU, nccl on CUDA) and return this
     process's row of a mesh whose 'data' axis is the processes. Otherwise a
@@ -401,12 +401,12 @@ def _normmats_for_levels(expected_log, levels, bins, crop):
 # --------------------------------------------------------------------------
 
 
-def make_trainer(job: TrainJob, device=None):
+def make_trainer(job: TrainJob, *, device=None):
     """The stage's trainer on `device` (None = CUDA), over the job's mesh
     (its state then on the first device of this process's row)."""
     if job.stage not in _STAGE_DEFAULTS:
         raise ValueError(f"unknown stage {job.stage!r} (a|b|c)")
-    mesh = build_mesh(job, device)
+    mesh = build_mesh(job, device=device)
     device = mesh.device() if mesh is not None else resolve_device(device)
     world = mesh.shape["data"] if mesh is not None else 1
     os.makedirs(job.workdir, exist_ok=True)
@@ -574,7 +574,7 @@ def _make_stage_c(job: TrainJob, device, mesh=None, world=1):
     )
 
 
-def run(job: TrainJob, device=None):
+def run(job: TrainJob, *, device=None):
     """Assemble and run a training job on `device` (None = CUDA); resumes
     from the latest checkpoint in workdir when resume=True. A job whose
     mesh has data=N > 1 and no `multihost` runs as N processes started
@@ -582,7 +582,7 @@ def run(job: TrainJob, device=None):
     data = mesh_sizes(job)["data"]
     if data > 1 and not job.multihost:
         return _spawn(job, device, data)
-    trainer = make_trainer(job, device)
+    trainer = make_trainer(job, device=device)
     if job.resume and trainer.try_restore():
         print(f"resumed from step {trainer.step} in {job.workdir}",
               flush=True)
@@ -656,7 +656,7 @@ def _worker(rank: int, world: int, port: int, job: TrainJob, device,
                       WORLD_SIZE=str(world), RANK=str(rank),
                       LOCAL_RANK=str(rank))
     try:
-        metrics = run(dataclasses.replace(job, multihost=True), device)
+        metrics = run(dataclasses.replace(job, multihost=True), device=device)
         if rank == 0:
             results.put({k: float(v) for k, v in (metrics or {}).items()})
     finally:

@@ -94,7 +94,7 @@ def latest_checkpoint(workdir: str) -> Optional[str]:
     return os.path.join(os.path.abspath(workdir), f"ckpt_{max(steps)}.pt")
 
 
-def restore_state(workdir: str, device=None) -> Optional[dict]:
+def restore_state(workdir: str, *, device=None) -> Optional[dict]:
     """The latest checkpoint in workdir, its tensors on `device`, or None."""
     path = latest_checkpoint(workdir)
     if path is None:
@@ -218,7 +218,7 @@ class _Trainer:
     def _restore(self) -> Optional[dict]:
         """Load the latest checkpoint's common state (step, learning rate,
         step key, host sidecar); returns the checkpoint or None."""
-        restored = restore_state(self.loop.workdir, self.device)
+        restored = restore_state(self.loop.workdir, device=self.device)
         if restored is None:
             return None
         self.step = int(restored["step"])
@@ -236,7 +236,7 @@ class StageATrainer(_Trainer):
 
     def __init__(self, cfg: StageAConfig, loop: LoopConfig, sampler,
                  normmat_r: np.ndarray, eps: float,
-                 params: Optional[dict] = None, mesh=None, device=None):
+                 params: Optional[dict] = None, mesh=None, *, device=None):
         """device: None = CUDA. mesh: None for one device, else a mesh of
         one row of devices in this process (parallel.mesh.make_mesh, or
         multihost.make_multihost_mesh when its 'data' axis spans
@@ -249,7 +249,7 @@ class StageATrainer(_Trainer):
         self.normmat_r = torch.as_tensor(normmat_r, dtype=torch.float32,
                                          device=self.device)
         self.eps = float(eps)
-        self.opt, self.step_fn = make_stage_a_step(cfg, self.device,
+        self.opt, self.step_fn = make_stage_a_step(cfg, device=self.device,
                                                    group=self.group)
         gen = torch.Generator(device=self.device).manual_seed(loop.seed)
         self.params = self._replicate(params or decoders.init_net(
@@ -257,7 +257,7 @@ class StageATrainer(_Trainer):
         self.opt_state = self.opt.init(self.params)
         self.swa_state = (swa_lib.swa_init(self.params) if loop.use_swa
                           else None)
-        self.bn_refresh = (swa_lib.make_swa_bn_refresh(cfg, self.group)
+        self.bn_refresh = (swa_lib.make_swa_bn_refresh(cfg, group=self.group)
                            if loop.use_swa else None)
         self.scheduler = optim.ReduceLROnPlateau(lr=loop.lr)
         self.step = 0
@@ -349,7 +349,7 @@ class StageATrainer(_Trainer):
             corr, _mse, _bce = stage_a_eval_metrics(
                 folded, self.cfg, seq_d, target_d, target_1d_d,
                 self.normmat_r, self.eps, group=self.group)
-            corrs.append(multihost.fetch_global(corr, self.mesh))
+            corrs.append(multihost.fetch_global(corr, mesh=self.mesh))
         return float(np.nanmean(np.concatenate(corrs)))
 
 
@@ -360,7 +360,7 @@ class StageBTrainer(_Trainer):
     def __init__(self, cfg: StageBConfig, loop: LoopConfig, sampler,
                  trainable: dict, frozen: dict, normmats: np.ndarray,
                  epss: np.ndarray, nan_skip: float = 0.5,
-                 accumulate: int = 4, mesh=None, device=None):
+                 accumulate: int = 4, mesh=None, *, device=None):
         """device, mesh: as for StageATrainer; a mesh whose 'seq' axis has
         more than one device also shards the frozen tower's sequence over
         its row (the reference trains every stage on 4 GPUs,
@@ -371,9 +371,10 @@ class StageBTrainer(_Trainer):
         self.epss = torch.as_tensor(epss, dtype=torch.float32,
                                     device=self.device)
         encoder_fn = _mesh_encoder_fn(mesh, cfg.encoder_block_bp)
-        opt, step_fn = make_stage_b_step(cfg, encoder_fn, self.device,
-                                         self.group)
-        eval_fn = make_stage_b_eval(cfg, encoder_fn, self.device, self.group)
+        opt, step_fn = make_stage_b_step(cfg, encoder_fn, device=self.device,
+                                         group=self.group)
+        eval_fn = make_stage_b_eval(cfg, encoder_fn, device=self.device,
+                                    group=self.group)
         self._base_init(cfg, loop, sampler, trainable, frozen, nan_skip,
                         accumulate, opt, step_fn, eval_fn, "stage_b")
 
@@ -455,7 +456,7 @@ class StageBTrainer(_Trainer):
             mses, corrs = self._eval_batch()
             for lv in self.cfg.levels:
                 level_corrs[lv].append(
-                    multihost.fetch_global(corrs[lv], self.mesh))
+                    multihost.fetch_global(corrs[lv], mesh=self.mesh))
                 level_mses[lv].append(float(mses[lv]))
         metrics = {}
         for lv in self.cfg.levels:
@@ -504,14 +505,15 @@ class StageCTrainer(StageBTrainer):
 
     def __init__(self, cfg: StageCConfig, loop: LoopConfig, sampler,
                  trainable: dict, frozen: dict, nan_skip: float = 0.5,
-                 accumulate: int = 1, mesh=None, device=None):
+                 accumulate: int = 1, mesh=None, *, device=None):
         """device, mesh: as for StageBTrainer (the 256 Mb windows are where
         sharding the tower's sequence matters most)."""
         self._setup_mesh(mesh, device)
         encoder_fn = _mesh_encoder_fn(mesh, cfg.encoder_block_bp)
-        opt, step_fn = make_stage_c_step(cfg, encoder_fn, self.device,
-                                         self.group)
-        eval_fn = make_stage_c_eval(cfg, encoder_fn, self.device, self.group)
+        opt, step_fn = make_stage_c_step(cfg, encoder_fn, device=self.device,
+                                         group=self.group)
+        eval_fn = make_stage_c_eval(cfg, encoder_fn, device=self.device,
+                                    group=self.group)
         self._base_init(cfg, loop, sampler, trainable, frozen, nan_skip,
                         accumulate, opt, step_fn, eval_fn, "stage_c")
 

@@ -30,7 +30,8 @@ def log_fold_target(target_r: torch.Tensor, normmat, eps) -> torch.Tensor:
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor,
-               normalize: str = "valid_mean", group=None) -> torch.Tensor:
+               normalize: str = "valid_mean", *,
+               group=None) -> torch.Tensor:
     """MSE over finite target entries: 'valid_mean' divides by their count
     (stages a and b), 'full_count' by every entry (stage c).
 
@@ -50,7 +51,7 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor,
 
 
 def bce(pred: torch.Tensor, target: torch.Tensor,
-        eps: float = 1e-7, group=None) -> torch.Tensor:
+        eps: float = 1e-7, *, group=None) -> torch.Tensor:
     """Binary cross-entropy on probabilities (nn.BCELoss semantics), clamped
     for numerical safety. group: as for masked_mse, over the global
     batch's entries."""

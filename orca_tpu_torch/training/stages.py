@@ -112,7 +112,7 @@ def _detached(metrics: dict) -> dict:
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_stage_a_step(cfg: StageAConfig, device=None, group=None):
+def make_stage_a_step(cfg: StageAConfig, *, device=None, group=None):
     """Returns (opt, step): step(params, opt_state, seq, target, target_1d,
     rng, lr, normmat_r, eps) -> (params, opt_state, metrics).
 
@@ -164,7 +164,7 @@ def make_stage_a_step(cfg: StageAConfig, device=None, group=None):
 
 
 def stage_a_eval_metrics(params, cfg: StageAConfig, seq, target, target_1d,
-                         normmat_r, eps, group=None):
+                         normmat_r, eps, *, group=None):
     """Validation forward: (pearson r per sample, mse, bce). Unfolded
     parameters are folded first (`fold_params`), so on a CUDA tensor the
     tower runs the fused kernels; the CPU takes their plain versions. With
@@ -252,7 +252,7 @@ def _frozen_features(encoder_fn, params, seq):
         return encoder_fn(params, seq)
 
 
-def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None,
+def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, *, device=None,
                       group=None):
     """Returns (opt, step): step(trainable, frozen, opt_state, seq, target,
     rng, lr, normmats, epss) -> (trainable, opt_state, metrics).
@@ -327,7 +327,7 @@ def make_stage_b_step(cfg: StageBConfig, encoder_fn=None, device=None,
     return opt, step
 
 
-def make_stage_b_eval(cfg: StageBConfig, encoder_fn=None, device=None,
+def make_stage_b_eval(cfg: StageBConfig, encoder_fn=None, *, device=None,
                       group=None):
     """Validation forward at the reference's fixed zoom offsets (start 0,
     then +(half/2 + 1) * 32, then +half/2 * level), returning per level
@@ -424,7 +424,7 @@ def _stage_c_encodings(trainable, frozen, feats, train=False, **kw):
     ))
 
 
-def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None,
+def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, *, device=None,
                       group=None):
     """Returns (opt, step): step(trainable, frozen, opt_state, seq, target,
     normmat, rng, lr) -> (trainable, opt_state, metrics).
@@ -484,7 +484,7 @@ def make_stage_c_step(cfg: StageCConfig, encoder_fn=None, device=None,
     return opt, step
 
 
-def make_stage_c_eval(cfg: StageCConfig, encoder_fn=None, device=None,
+def make_stage_c_eval(cfg: StageCConfig, encoder_fn=None, *, device=None,
                       group=None):
     """Stage-c validation at the reference's fixed offsets (+half/2 * 32
     after the coarsest level, then +(half/2 + 1) * factor), with per-sample

@@ -23,7 +23,7 @@ def swa_update(swa_state: dict, params) -> dict:
     return {"avg": avg, "n": n + 1}
 
 
-def make_swa_bn_refresh(cfg, group=None):
+def make_swa_bn_refresh(cfg, *, group=None):
     """refresh(swa_state, seq, rng) -> swa_state with the averaged
     parameters' BatchNorm running statistics updated by a train-mode forward
     of the batch (no gradient). `cfg` is a StageAConfig; group: the

@@ -30,6 +30,11 @@ class OrcaConfig:
         ~104 kb receptive field, so blocked and monolithic runs agree.
     kernel_block_bp: block length of the encoder tower (the counterpart of
         the JAX package's `pallas_block_bp`), a multiple of 4000.
+
+    The first four fields take the JAX package's positions; the fields after
+    them are keyword-only, because the JAX package's fifth field,
+    `encoder_block_bp` (its XLA path's block), has no counterpart here, so a
+    fifth positional argument raises instead of setting the halo.
     """
 
     resource_dir: str = os.environ.get(
@@ -38,6 +43,7 @@ class OrcaConfig:
     model_dir: str = os.environ.get("ORCA_TPU_MODELS", str(REPO_ROOT / "models"))
     extra_dir: str = os.environ.get("ORCA_TPU_EXTRA", str(REPO_ROOT / "extra"))
     param_dtype: str = os.environ.get("ORCA_TPU_PARAM_DTYPE", "float32")
+    _: dataclasses.KW_ONLY
     encoder_halo_bp: int = 112000
     kernel_block_bp: int = 4_000_000
 

@@ -528,8 +528,8 @@ def test_warmup_32m_runs_one_request_on_cpu(monkeypatch):
     """The 32 Mb warm-up runs one real request on an all-zero packed window
     at its geometry and returns its seconds."""
     geom = tms.CascadeGeometry(1_024_000, 4000, 8)
-    bundle = tzoo.fold_bundle(tzoo.random_32m_bundle(0, "cpu", nbins=256,
-                                                     crop=8))
+    bundle = tzoo.fold_bundle(tzoo.random_32m_bundle(0, nbins=256, crop=8,
+                                                     device="cpu"))
     seen = []
     real = tms._cascade_32mb
 
@@ -548,7 +548,7 @@ def test_warmup_256m_runs_one_request_on_cpu(monkeypatch):
     """The 256 Mb warm-up runs one request (encoder step replaced by zeros)
     on an all-zero window with a flat background."""
     geom = tms.CascadeGeometry(8_192_000, 32_000, 8)
-    bundle = tzoo.fold_256m_bundle(tzoo.random_256m_bundle(0, "cpu"))
+    bundle = tzoo.fold_256m_bundle(tzoo.random_256m_bundle(0, device="cpu"))
     seen = []
 
     def encode(bundle, seq, mesh=None):

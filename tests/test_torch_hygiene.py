@@ -6,7 +6,9 @@ included) run on CUDA unless the caller asks for the CPU, the prediction API and
 matplotlib, and a 256 Mb bundle pickled by the JAX package loads into the
 port's class without it. Every public name an `orca_tpu/**/__init__.py`
 binds exists on the matching orca_tpu_torch module, and `set_config`
-installs the configuration `get_config` returns."""
+installs the configuration `get_config` returns. Every public function and
+class of an orca_tpu module with a counterpart takes JAX's arguments in
+JAX's positions in the port, the exemptions listed with their reasons."""
 
 import ast
 import os
@@ -476,3 +478,180 @@ def test_scripts_need_cuda_unless_told_cpu():
                bench_256m.main):
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()
+
+
+# --------------------------------------------------------------------------
+# Signatures: code written for orca_tpu calls the port with the same
+# arguments. For each public function and class of each JAX module with a
+# counterpart, JAX's positional parameters sit at the same positions in the
+# port, every JAX parameter is accepted, and the port's own additions
+# (device, the port's Mesh, a torch.Generator, a data-parallel group) come
+# after JAX's, keyword-only. The exemptions, each with its reason:
+# --------------------------------------------------------------------------
+
+_GEN = ("initial parameters are drawn from a torch.Generator, which the port "
+        "takes in the JAX key's place")
+_DTYPE = ("the port initialises in float32; a bundle is cast after "
+          "(zoo.cast_bundle)")
+_ORCA_XLA = ("the XLA path's block of the JAX tower; the port runs one tower "
+             "path, blocked by kernel_block_bp")
+# (JAX module, name) -> {JAX parameter: why the port does not take it as JAX
+# does}
+EXEMPT_PARAMS = {
+    ("nn/core.py", "init_block"): {"rng": _GEN, "dtype": _DTYPE},
+    ("nn/encoders.py", "init_encoder_tower"): {"rng": _GEN, "dtype": _DTYPE},
+    ("nn/encoders.py", "init_pyramid"): {"rng": _GEN, "dtype": _DTYPE},
+    ("nn/decoders.py", "init_decoder"): {"rng": _GEN, "dtype": _DTYPE},
+    ("nn/decoders.py", "init_decoder1m"): {"rng": _GEN, "dtype": _DTYPE},
+    ("nn/decoders.py", "init_net"): {"rng": _GEN, "dtype": _DTYPE},
+    ("ops/nn_ops.py", "dropout"): {
+        "rng": "masks are drawn in nn.core.apply_unit from the unit's key; "
+               "the port's dropout takes the mask in the key's place"},
+    ("nn/encoders.py", "apply_encoder_tower"): {
+        "checkpoint_blocks": "no caller in either package "
+                             "(orca_tpu/nn/encoders.py:302, :454)"},
+    ("training/loop.py", "restore_state"): {
+        "template": "an orbax restore template; the port's checkpoints are "
+                    "torch files, which need none"},
+    ("utils/config.py", "OrcaConfig"): {
+        "encoder_block_bp": _ORCA_XLA,
+        "pallas_block_bp": "the Pallas tower's block; the port's "
+                           "counterpart is kernel_block_bp",
+        "interpret_pallas": "runs the Pallas kernels in interpret mode; the "
+                            "port's kernels are CUDA, with plain versions "
+                            "on the CPU",
+        "use_pallas": "chooses between the XLA and Pallas towers; the port "
+                      "has one tower"},
+}
+# (JAX module, name) -> why the port has no such function
+EXEMPT_NAMES = {
+    ("nn/encoders.py", "apply_encoder_stages_pallas"):
+        "the TPU's Pallas stages; the port's fused CUDA stages run inside "
+        "apply_encoder_tower",
+    ("nn/encoders.py", "pallas_encoder_enabled"):
+        "whether the TPU's Pallas tower runs; the port's tower always runs "
+        "its CUDA kernels on the card",
+}
+
+
+def _jax_public(rel):
+    """The public functions and classes a JAX module defines (parsed, not
+    imported)."""
+    tree = ast.parse((REPO / "orca_tpu" / rel).read_text())
+    return sorted(n.name for n in tree.body
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                  and not n.name.startswith("_"))
+
+
+SIGNED = [(rel, name) for rel in JAX_MODULES if rel not in UNPORTED
+          for name in _jax_public(rel)]
+
+
+def _module(package, rel):
+    import importlib
+
+    parts = rel[:-3].split("/")
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    return importlib.import_module(".".join([package, *parts]))
+
+
+def _signature_faults(jax_obj, port_obj, exempt):
+    """The ways `port_obj` does not take `jax_obj`'s arguments, `exempt`'s
+    parameters aside: [] when a call written for JAX binds the same."""
+    import inspect
+
+    P = inspect.Parameter
+    positional = (P.POSITIONAL_ONLY, P.POSITIONAL_OR_KEYWORD)
+    jp = inspect.signature(jax_obj).parameters
+    tp = inspect.signature(port_obj).parameters
+    jpos = [n for n, p in jp.items() if p.kind in positional]
+    tpos = [n for n, p in tp.items() if p.kind in positional]
+    faults = [f"{name!r} is not an exempt JAX parameter" for name in exempt
+              if name not in jp]
+    # each of the port's positions is JAX's there, or stands in for an
+    # exempt one; the port's own parameters are keyword-only
+    for i, name in enumerate(tpos):
+        if i >= len(jpos):
+            faults.append(f"{name!r} is positional past JAX's {len(jpos)}")
+        elif name != jpos[i] and jpos[i] not in exempt:
+            faults.append(f"position {i} is {name!r}, JAX's is {jpos[i]!r}")
+    # JAX's positions hold JAX's names; after an exempt parameter the port
+    # lacks, later positions cannot match, so those names are keyword-only
+    shifted = False
+    for i, name in enumerate(jpos):
+        if name in exempt:
+            shifted = shifted or i >= len(tpos)
+        elif shifted:
+            if name not in tp or tp[name].kind != P.KEYWORD_ONLY:
+                faults.append(f"{name!r} is not keyword-only after a shift")
+        elif i >= len(tpos) or tpos[i] != name:
+            faults.append(f"JAX's {name!r} is not at position {i}")
+    takes_any = any(p.kind == P.VAR_KEYWORD for p in tp.values())
+    for name, p in jp.items():
+        if p.kind == P.KEYWORD_ONLY and name not in exempt and not (
+                name in tp or takes_any):
+            faults.append(f"JAX's keyword {name!r} is not accepted")
+        if (name in tp and p.default is not P.empty
+                and tp[name].default is P.empty):
+            faults.append(f"{name!r} has a default in JAX, none in the port")
+    var = [any(p.kind == P.VAR_POSITIONAL for p in ps.values())
+           for ps in (jp, tp)]
+    if var[0] != var[1]:
+        faults.append("*args differ")
+    for i, (name, p) in enumerate(tp.items()):
+        stands_in = i < len(jpos) and jpos[i] in exempt
+        if (name not in jp and p.default is P.empty and not stands_in
+                and p.kind not in (P.VAR_POSITIONAL, P.VAR_KEYWORD)):
+            faults.append(f"the port's {name!r} is required")
+    return faults
+
+
+@pytest.mark.parametrize("rel,name", SIGNED,
+                         ids=[f"{r}:{n}" for r, n in SIGNED])
+def test_port_takes_jax_arguments(rel, name):
+    """A public function or class of orca_tpu exists in the port (or is in
+    EXEMPT_NAMES, and then does not) and takes JAX's arguments in JAX's
+    positions, EXEMPT_PARAMS aside."""
+    port = getattr(_module("orca_tpu_torch", rel), name, None)
+    if (rel, name) in EXEMPT_NAMES:
+        assert port is None
+        return
+    assert port is not None, f"{rel}: {name} has no counterpart"
+    jax_obj = getattr(_module("orca_tpu", rel), name)
+    assert _signature_faults(jax_obj, port,
+                             EXEMPT_PARAMS.get((rel, name), {})) == []
+
+
+EXEMPTIONS = sorted(
+    [(rel, name, p) for (rel, name), ps in EXEMPT_PARAMS.items() for p in ps]
+    + [(rel, name, None) for rel, name in EXEMPT_NAMES],
+    key=lambda e: (e[0], e[1], e[2] or ""))
+
+
+@pytest.mark.parametrize("rel,name,param", EXEMPTIONS,
+                         ids=[f"{r}:{n}:{p}" for r, n, p in EXEMPTIONS])
+def test_every_exemption_is_needed(rel, name, param):
+    """Each exemption names a JAX function or class this check walks, and
+    without it the check fails: the list cannot go stale."""
+    assert (rel, name) in SIGNED
+    if param is None:
+        assert getattr(_module("orca_tpu_torch", rel), name, None) is None
+        return
+    exempt = dict(EXEMPT_PARAMS[(rel, name)])
+    del exempt[param]
+    assert _signature_faults(getattr(_module("orca_tpu", rel), name),
+                             getattr(_module("orca_tpu_torch", rel), name),
+                             exempt) != []
+
+
+def test_orca_config_fifth_positional_raises():
+    """JAX's fifth field is `encoder_block_bp`: passed positionally to the
+    port's OrcaConfig it raises, and never sets the halo."""
+    from orca_tpu_torch.utils.config import OrcaConfig
+
+    with pytest.raises(TypeError):
+        OrcaConfig("r", "m", "e", "float32", 800_000)
+    cfg = OrcaConfig("r", "m", "e", "float32", encoder_halo_bp=116_000)
+    assert (cfg.resource_dir, cfg.param_dtype, cfg.encoder_halo_bp) == (
+        "r", "float32", 116_000)

@@ -157,7 +157,7 @@ def test_run_stages_a_b_c_chained(resources, tmp_path):
     assert os.path.exists(tmp_path / "a" / "ckpt_2.pt")
     job_a.max_steps = 3
     tlaunch.run(job_a, device="cpu")  # resumes from step 2
-    state_a = restore_state(str(tmp_path / "a"), "cpu")
+    state_a = restore_state(str(tmp_path / "a"), device="cpu")
     assert state_a["step"] == 3 and state_a["swa"]["n"] == 3
 
     job_b = _job(r, "b", workdir=str(tmp_path / "b"),
@@ -181,7 +181,7 @@ def test_run_stages_a_b_c_chained(resources, tmp_path):
                  init_workdir_b=str(tmp_path / "b"), window_bp=2_048_000,
                  accumulate=1, max_steps=1)
     trainer_c = tlaunch.make_trainer(job_c, device="cpu")
-    pyramid_b = restore_state(str(tmp_path / "b"), "cpu")["trainable"][
+    pyramid_b = restore_state(str(tmp_path / "b"), device="cpu")["trainable"][
         "pyramid"]
     for a, b in zip(tree_leaves(fold_params(pyramid_b,
                                             tenc.pyramid_spec(5, True))),

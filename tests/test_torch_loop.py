@@ -167,13 +167,14 @@ def test_checkpoint_files_round_trip(tmp_path):
     tloop.save_state(str(tmp_path), 12, dict(state, step=12))
     (tmp_path / "ckpt_99").mkdir()  # an orbax step dir is not read
     assert tloop.latest_checkpoint(str(tmp_path)).endswith("ckpt_12.pt")
-    got = tloop.restore_state(str(tmp_path), "cpu")
+    got = tloop.restore_state(str(tmp_path), device="cpu")
     assert got["step"] == 12 and got["rng"] == 2 ** 64 - 5
     assert torch.equal(got["trainable"]["decoders"][32][0], torch.arange(3.0))
     tloop.save_host_state(str(tmp_path), 12, {"sched": {"lr": 1.0}})
     assert tloop.load_host_state(str(tmp_path), 12) == {"sched": {"lr": 1.0}}
     assert tloop.load_host_state(str(tmp_path), 7) is None
-    assert tloop.restore_state(str(tmp_path / "none"), "cpu") is None
+    assert tloop.restore_state(str(tmp_path / "none"),
+                               device="cpu") is None
     assert not [p for p in os.listdir(tmp_path) if p.endswith(".tmp")]
 
 

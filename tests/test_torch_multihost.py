@@ -218,7 +218,7 @@ def port_step(stage, group=None, mesh=None, draws=None, device="cpu"):
     if stage == "a":
         cfg = tst.StageAConfig(num_1d=4, crop=CROP_A, target_factor=4,
                                seq_len=SEQ_A, remat=True)
-        opt, step = tst.make_stage_a_step(cfg, device, group=group)
+        opt, step = tst.make_stage_a_step(cfg, device=device, group=group)
         params = tree_map(lambda t: t.to(device), t64(d["params"]))
         args = [t64(d[k])[rows].to(device)
                 for k in ("seq", "target", "target_1d")]
@@ -229,8 +229,8 @@ def port_step(stage, group=None, mesh=None, draws=None, device="cpu"):
         cfg = tst.StageCConfig(geometry=_geom(C_GEOM), levels=C_LEVELS,
                                encoder_block_bp=None)
         feats = t64(d["feats"])[rows]
-        opt, step = tst.make_stage_c_step(cfg, lambda p, s: feats, "cpu",
-                                          group)
+        opt, step = tst.make_stage_c_step(cfg, lambda p, s: feats,
+                                          device="cpu", group=group)
         params = t64(d["trainable"])
         frozen = {"encoder": {}, "pyramid1": fold_params(
             t64(d["pyramid1"]), tenc.pyramid_spec(5, True))}
@@ -257,7 +257,8 @@ def port_step(stage, group=None, mesh=None, draws=None, device="cpu"):
                           else lambda p, s: torch.cat([
                               tenc.apply_encoder_tower(p, s[i:i + 1])
                               for i in range(s.shape[0])]))
-        opt, step = tst.make_stage_b_step(cfg, encoder_fn, "cpu", group)
+        opt, step = tst.make_stage_b_step(cfg, encoder_fn, device="cpu",
+                                          group=group)
         params = t64(d["trainable"])
         params, state, metrics = run(
             step, params, frozen, opt.init(params), seq,
@@ -296,7 +297,8 @@ def _rank_steps(outdir):
         "shard": multihost.shard_batch(mesh, x).numpy(),
         "own": multihost.shard_batch(mesh, x[:3] + 100 * rank,
                                      global_batch=False).numpy(),
-        "gathered": multihost.fetch_global(torch.full((2, 3), rank), mesh),
+        "gathered": multihost.fetch_global(torch.full((2, 3), rank),
+                                           mesh=mesh),
     }
     draws = PinnedDraws()
     try:

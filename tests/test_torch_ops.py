@@ -136,3 +136,41 @@ def test_full_fp32_restores_tf32_flags():
     assert (torch.backends.cudnn.allow_tf32,
             torch.backends.cuda.matmul.allow_tf32,
             torch.backends.cudnn.deterministic) == before
+
+
+@pytest.mark.parametrize("k,stride", [(4, 2), (5, 3), (2, 3), (4, 4)])
+def test_maxpool1d_stride(k, stride):
+    """maxpool1d(x, k, stride), the JAX package's third positional
+    argument, overlapping, gapped and equal to k."""
+    x = _rand(19, 2, 23, 6)
+    got = tops.maxpool1d(torch.from_numpy(x), k, stride)
+    assert got.shape == (2, (23 - k) // stride + 1, 6)
+    _both(lambda x: tops.maxpool1d(x, k, stride),
+          lambda x: jops.maxpool1d(x, k, stride), x)
+
+
+def test_conv_precision():
+    """precision= None, 'highest' or lax.Precision.HIGHEST runs the convs at
+    full float32 as before; a precision that would let lower passes in
+    raises instead of being ignored."""
+    from jax import lax
+
+    x, w, b = _rand(20, 2, 30, 8), _rand(21, 9, 8, 5) * 0.2, _rand(22, 5)
+    x2, w2 = _rand(23, 2, 9, 9, 8), _rand(24, 3, 3, 8, 5) * 0.2
+    args1 = [torch.from_numpy(a) for a in (x, w, b)]
+    args2 = [torch.from_numpy(a) for a in (x2, w2, b)]
+    want1, want2 = tops.conv1d(*args1), tops.conv2d(*args2)
+    for precision in (None, "highest", lax.Precision.HIGHEST,
+                      (lax.Precision.HIGHEST, lax.Precision.HIGHEST)):
+        assert torch.equal(tops.conv1d(*args1, precision=precision), want1)
+        assert torch.equal(tops.conv2d(*args2, precision=precision), want2)
+        check_fp32(lambda x, w, b: tops.conv1d(x, w, b, precision=precision),
+                   lambda x, w, b: jops.conv1d(x, w, b, precision=precision),
+                   x, w, b)
+    for precision in ("default", "high", "tensorfloat32",
+                      lax.Precision.DEFAULT,
+                      (lax.Precision.HIGHEST, lax.Precision.DEFAULT)):
+        with pytest.raises(ValueError, match="precision"):
+            tops.conv1d(*args1, precision=precision)
+        with pytest.raises(ValueError, match="precision"):
+            tops.conv2d(*args2, precision=precision)

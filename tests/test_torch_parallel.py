@@ -111,10 +111,10 @@ def test_mesh_defaults_need_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         tmesh.inference_mesh_from_seq_shards(1)
     assert tmesh.local_devices("cpu") == [CPU]
-    assert tmesh.inference_mesh_from_seq_shards(1, "cpu").shape == {
-        "data": 1, "seq": 1}
+    assert tmesh.inference_mesh_from_seq_shards(
+        1, device_type="cpu").shape == {"data": 1, "seq": 1}
     with pytest.raises(ValueError, match="does not divide 1 devices"):
-        tmesh.inference_mesh_from_seq_shards(2, "cpu")
+        tmesh.inference_mesh_from_seq_shards(2, device_type="cpu")
 
 
 def test_inference_mesh_set_and_cleared():
@@ -288,8 +288,8 @@ def test_genomepredict_mesh_reaches_the_sharded_tower(bundles, monkeypatch):  # 
 
     monkeypatch.setattr(tms, "sharded_encoder_tower", tower)
     small = tms.CascadeGeometry(512_000, 4000, 4)
-    bundle = tzoo.fold_bundle(tzoo.random_32m_bundle(0, "cpu", nbins=128,
-                                                     crop=4))
+    bundle = tzoo.fold_bundle(tzoo.random_32m_bundle(0, nbins=128, crop=4,
+                                                     device="cpu"))
     glob, mine = cpu_mesh((1, 2)), cpu_mesh((1, 4))
     tmesh.set_inference_mesh(glob)
     tms.warmup_cascade_32m(bundle, small, device="cpu")
@@ -304,7 +304,7 @@ def test_genomepredict_mesh_reaches_the_sharded_tower(bundles, monkeypatch):  # 
 def test_genomepredict_256mb_with_mesh_matches_one_device(monkeypatch):
     monkeypatch.setattr(tenc, "apply_encoder_tower", local_tower)
     geom = tms.CascadeGeometry(8_192_000, 32_000, 8)
-    bundle = tzoo.fold_256m_bundle(tzoo.random_256m_bundle(3, "cpu"))
+    bundle = tzoo.fold_256m_bundle(tzoo.random_256m_bundle(3, device="cpu"))
     chrlen = int(geom.window_bp * 0.75) // geom.bin_bp * geom.bin_bp
     rng = np.random.RandomState(4)
     normmat = np.exp(-rng.rand(geom.bins, geom.bins)).astype(np.float32)

@@ -213,7 +213,7 @@ def test_profile_cascade_prints_the_jax_labels(monkeypatch, capsys):
     from orca_tpu_torch.models import zoo
 
     bundle = zoo.fold_bundle(zoo.random_32m_bundle(
-        0, "cpu", nbins=GEOM_T.bins, crop=GEOM_T.crop))
+        0, nbins=GEOM_T.bins, crop=GEOM_T.crop, device="cpu"))
     out = profile_cascade.main(n=1, geometry=GEOM_T, device="cpu",
                                bundle=bundle)
     printed = printed_labels(capsys.readouterr().out)
@@ -281,7 +281,8 @@ def test_probe_two_model_prints_the_jax_labels(monkeypatch, capsys):
     from orca_tpu_torch.models import zoo
 
     bundles = [zoo.fold_bundle(zoo.random_32m_bundle(
-        s, "cpu", nbins=GEOM_T.bins, crop=GEOM_T.crop)) for s in (0, 1)]
+        s, nbins=GEOM_T.bins, crop=GEOM_T.crop, device="cpu"))
+        for s in (0, 1)]
     out = probe_two_model.main(iters=1, geometry=GEOM_T, device="cpu",
                                bundles=bundles)
     printed = printed_labels(capsys.readouterr().out)

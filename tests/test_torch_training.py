@@ -426,7 +426,7 @@ def test_stage_a_two_steps_match_jax(jax_stage_a, case, monkeypatch):
     d = _stage_a_inputs(case)
     cfg = tst.StageAConfig(num_1d=num_1d, num_2d=num_2d, crop=CROP_A,
                            target_factor=4, seq_len=SEQ_A, remat=remat)
-    opt, step = tst.make_stage_a_step(cfg, "cpu")
+    opt, step = tst.make_stage_a_step(cfg, device="cpu")
     params = f64(d["params"])
     state = opt.init(params)
     args = [f64(d[k]) for k in ("seq", "target", "target_1d")]
@@ -456,7 +456,7 @@ def test_stage_a_carries_the_jax_momentum(jax_stage_a, monkeypatch):
     d = _stage_a_inputs(case)
     cfg = tst.StageAConfig(num_1d=4, crop=CROP_A, target_factor=4,
                            seq_len=SEQ_A, remat=False)
-    _, step = tst.make_stage_a_step(cfg, "cpu")
+    _, step = tst.make_stage_a_step(cfg, device="cpu")
     first, second = jax_stage_a["tracks"][0]
     state = opt_state_from_numpy({"trace": first[1]}, device="cpu",
                                  dtype=torch.float64)
@@ -493,7 +493,7 @@ def test_stage_a_remat_equals_no_remat(num_1d):
     for remat in (False, True):
         cfg = tst.StageAConfig(num_1d=num_1d, crop=CROP_A, target_factor=4,
                                seq_len=SEQ_A, remat=remat)
-        opt, step = tst.make_stage_a_step(cfg, "cpu")
+        opt, step = tst.make_stage_a_step(cfg, device="cpu")
         out.append(_grads_of(step, params, opt.init(params), seq, target,
                              t1d, trng.key(4), 0.002,
                              torch.full((CROP_A, CROP_A), 0.1), 0.1))

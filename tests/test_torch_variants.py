@@ -128,7 +128,8 @@ def test_warmup_accepts_variant(bundles, variant):
 @pytest.mark.parametrize("num_2d", [2, 6])
 def test_random_leukemia_bundle_backgrounds_equal(num_2d):
     want = jzoo.random_leukemia_bundle(3, num_2d, nbins=256, crop=8)
-    got = tzoo.random_leukemia_bundle(3, num_2d, "cpu", nbins=256, crop=8)
+    got = tzoo.random_leukemia_bundle(3, num_2d, nbins=256, crop=8,
+                                      device="cpu")
     assert got.num_2d == want.num_2d and got.upsample_mode == "nearest"
     assert got.pyramid_up_pass is False and "downl" not in got.pyramid
     assert got.decoders[1]["final"][1]["w"].shape[-1] == num_2d
