@@ -62,13 +62,31 @@ Phases (any failure exits non-zero before the final line):
      384 per request), the zoom starts checked against a host float32
      recomputation with the clamp, the maps checked finite, symmetric and
      250x250 and the end coordinates inside the chromosome; then the
-     encoder alone, for the split; then the 256 Mb cascade on the card
-     against the CPU plain path on an 8.192 Mb window (held to 1e-4, and
-     printed beside BAR_FP32);
+     encoder alone, for the split (phase 5c holds this path to orca_tpu
+     at full geometry, which replaced the 256 Mb cascade against the CPU
+     plain path on an 8.192 Mb window: ~75 s of host CPU);
  5b. one bf16 `genomepredict_256mb` with a (1, 2) mesh of cuda:0 on the
      same window (`sharded256` line): launches checked against the shards'
      group plan, starts equal to the unsharded request's, maps within twice
      its bf16-vs-fp32 difference;
+ 5c. the certificate against orca_tpu at full geometry ("certify_card"
+     lines): tests/data/certify_card_ref.npz holds orca_tpu's outputs,
+     computed on the CPU (tests/test_torch_certify_card.py); the weights
+     (phase 4's and 5's folded fp32 bundles, the 1 Mb one drawn on this
+     host's CPU) and the inputs (`orca_tpu_torch.certify_card`) have their
+     SHA-256 digests checked against the file's, and the card runs one fp32
+     `predict_1m` with tracks, 32 Mb `genomepredict` at both zooms in fp32
+     and bf16, and 256 Mb `genomepredict_256mb` at both zooms in fp32
+     (TF32 off), the launch
+     counters set to 0 before each request and checked just after (1/6,
+     8/48, 64/384). One line a request: each level's max|d| and max|ref|,
+     starts equal, the bar (fp32 BAR_FP32; bf16 twice orca_tpu's own
+     bf16-vs-fp32 max|d| at the level); then one `{"certify_card": ...}`
+     JSON line with every figure, pass for each bar, the card and the
+     phase's seconds. Different digests or starts, a non-finite map, wrong
+     launches, an fp32 figure over 1e-4 * max(1, max|ref|) or a bf16 figure
+     over twice its bar fail the phase; a figure over its bar but under
+     that only reads pass: false;
   6. the variant screens, through the entry points a user calls: random
      folded bundles (two 32 Mb, two 256 Mb) pickled by `zoo.save_bundle`
      and loaded by `load_resources` in bf16 onto the card (checked bf16,
@@ -2979,6 +2997,76 @@ def training_dp_phase(torch, tower, tmp, job_b, workdir_a, want1):
     return [sum(g["launches"][i] for g in got) for i in range(2)]
 
 
+CERTIFY_REFERENCE = os.path.join(ROOT, "tests", "data",
+                                 "certify_card_ref.npz")
+
+
+def certify_card_phase(torch, cc, encoders, smi, bundles):
+    """Phase 5c: the card's outputs against orca_tpu's, committed in
+    CERTIFY_REFERENCE (see `orca_tpu_torch.certify_card`); `bundles` are the
+    earlier phases' folded float32 bundles on the card by family (their
+    digests are checked like a bundle drawn here). Returns the phase's
+    launches by dtype."""
+    from orca_tpu_torch import certify_card as cert
+    from orca_tpu_torch.ops import nn_ops
+
+    t_phase = time.perf_counter()
+    ref = cert.load_reference(CERTIFY_REFERENCE)
+    groups = {name: 1 if name == "1m" else
+              encoders.fused_group_count(2, fam.window_bp)
+              for name, fam in cert.FULL.items()}
+    launches = {torch.bfloat16: {"fused_first_stage": 0,
+                                 "fused_conv_chain": 0},
+                torch.float32: {"fused_first_stage": 0,
+                                "fused_conv_chain": 0}}
+    requests = {}
+
+    @contextlib.contextmanager
+    def request(family, dtype, zoom):
+        reset_counters(cc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        got = counters(cc)
+        want = {"fused_first_stage": groups[family],
+                "fused_conv_chain": 6 * groups[family]}
+        check(got == want, f"certify_card {family} {dtype} {zoom}: launches "
+              f"{got} != {want}")
+        requests[(family, dtype, zoom)] = {
+            "launches": got, "seconds": time.perf_counter() - t0}
+        for k, v in got.items():
+            launches[getattr(torch, dtype)][k] += v
+
+    report = {}
+    with nn_ops.full_fp32():
+        for name, fam in cert.FULL.items():
+            try:
+                report[name] = cert.certify_family(
+                    ref, fam, "cuda", bundle=bundles.get(name),
+                    request=request,
+                    log=lambda line: print(line, flush=True))
+            except cert.CertifyError as e:
+                raise PhaseError(f"certify_card: {e}") from e
+            torch.cuda.empty_cache()
+    for (family, dtype, zoom), r in requests.items():
+        report[family][dtype][zoom].update(r)
+    figures = [z for fam in report.values() for zooms in fam.values()
+               for z in zooms.values() if "levels" in z]
+    secs = time.perf_counter() - t_phase
+    print(json.dumps({"certify_card": {
+        "card": smi, "torch": torch.__version__, "numpy": np.__version__,
+        "reference": os.path.relpath(CERTIFY_REFERENCE, ROOT),
+        "bar_fp32": cert.BAR_FP32, "limit_rel": cert.LIMIT_REL,
+        "limit_bf16": cert.LIMIT_BF16,
+        "digests_equal": True, "starts_equal": True,
+        "families": report, "seconds": secs,
+        "pass": all(z["pass"] for z in figures)}}), flush=True)
+    print(f"certify_card: phase {secs:.1f} s, {len(figures)} requests, "
+          f"launches {launches}", flush=True)
+    return launches
+
+
 def tree_cuda(torch, tree):
     from orca_tpu_torch.utils.tree import tree_map
 
@@ -3201,7 +3289,7 @@ def main() -> int:
                   refs[torch.bfloat16]["seconds"], smi)
 
     # 5. the 256 Mb path: a whole chromosome plus padding from a genome
-    del bf16_bundle, fp32_bundle, seq2
+    del bf16_bundle, seq2
     rng = np.random.default_rng(SEED + 4)
     genome = CodeGenome({
         "chrM": rng.integers(0, 4, CHROM_BP, dtype=np.uint8),
@@ -3349,42 +3437,16 @@ def main() -> int:
                          f"{copy_s:.4f} s + encoder+pyramids {min(enc_s):.4f} "
                          f"s + decoders/crops/outputs {rest:.4f} s")
     print("split256 " + "; ".join(parts), flush=True)
-    del dev_seq, bf16_256, fp32_256
+    del dev_seq, bf16_256, seq256, normmats
 
-    # the 256 Mb cascade on the card against the CPU plain path, 8.192 Mb
-    small = ms.CascadeGeometry(8_192_000, 32_000, 8)
-    cpu_b = zoo.fold_256m_bundle(zoo.random_256m_bundle(SEED + 3,
-                                                        device="cpu"))
-    gpu_b = zoo._map_params(cpu_b, lambda t: t.cuda())
-    schr = int(small.window_bp * 0.75) // small.bin_bp * small.bin_bp
-    snm = retrieval.assemble_normmat(
-        [["chrM", 0, schr, "+"], ["chr1", 0, small.window_bp - schr, "+"]],
-        cpu_b.background_cis, cpu_b.background_trans, binsize=small.bin_bp)
-    sseq = seq256[:, : small.window_bp]
-    smpos = int(small.window_bp * 0.74)
-    a = ms.genomepredict_256mb(sseq, "chrM", [snm], schr, smpos,
-                               small.window_bp // 2, [gpu_b], geometry=small)
-    threads = torch.get_num_threads()
-    torch.set_num_threads(len(os.sched_getaffinity(0)))
-    t0 = time.perf_counter()
-    b = ms.genomepredict_256mb(sseq, "chrM", [snm], schr, smpos,
-                               small.window_bp // 2, [cpu_b], geometry=small,
-                               device="cpu")
-    cpu_s = time.perf_counter() - t0
-    torch.set_num_threads(threads)
-    check(a["start_coords"] == b["start_coords"],
-          f"8.192 Mb window: starts {a['start_coords']} != CPU "
-          f"{b['start_coords']}")
-    d = max(np.abs(p - q).max() for p, q in zip(a["predictions"][0],
-                                                b["predictions"][0]))
-    m = max(np.abs(q).max() for q in b["predictions"][0])
-    print(f"8.192 Mb window 256 Mb cascade fp32 card vs CPU plain: max|d| "
-          f"{d:.3e} max|ref| {m:.3e}, starts {a['start_coords']} equal "
-          f"(CPU {cpu_s:.1f} s on {len(os.sched_getaffinity(0))} threads); "
-          f"bar {BAR_FP32:.1e}: {'under' if d <= BAR_FP32 else 'over'}",
-          flush=True)
-    check(d <= 1e-4 * max(1.0, m), f"8.192 Mb window: max|d| {d}")
-    del cpu_b, gpu_b, seq256, normmats
+    # 5c. the card path against orca_tpu's outputs at full geometry, on
+    # phase 4's and 5's weights
+    for dtype, counts in certify_card_phase(
+            torch, cc, encoders, smi,
+            {"32m": fp32_bundle, "256m": fp32_256}).items():
+        for k, v in counts.items():
+            launches[dtype][k] += v
+    del fp32_bundle, fp32_256
 
     # 6. the variant screens, through the entry points a user calls
     for k, v in screens_phase(torch, cc, zoo, genome).items():

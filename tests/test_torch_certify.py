@@ -20,7 +20,11 @@ inputs, at the geometries and zooms of the JAX package's own certificate
 The parameters are the JAX package's seeded random bundles (folded) and its
 1 Mb `Net`, carried into the port by `models.from_jax`; the normmats are
 `zoo._random_normmats`. Every figure is held to max|d| <= 2.0e-6, the bar
-the JAX package holds against the original Orca.
+the JAX package holds against the original Orca. The families' geometries
+and zooms, the 256 Mb sequence and background, and the per-level max|d|
+are `orca_tpu_torch.certify_card`'s, which the card certificate
+(`test_torch_certify_card.py`) uses too; SMALL here holds the small
+geometries both files test at.
 
 The full-geometry runs are `slow`: each writes its family's entry of
 CERTIFY_TORCH.json at the repository's root (per-level max|d|, starts
@@ -48,17 +52,14 @@ import torch
 from orca_tpu.models import zoo as jzoo
 from orca_tpu.nn import decoders as jdec
 from orca_tpu.predict import multiscale as jms
-from orca_tpu.predict.retrieval import assemble_normmat
+from orca_tpu_torch import certify_card as cert
 from orca_tpu_torch.models.from_jax import bundle_from_numpy, params_from_numpy
 from orca_tpu_torch.nn import decoders as tdec
 from orca_tpu_torch.predict import multiscale as tms
 
 REPORT = pathlib.Path(__file__).resolve().parent.parent / "CERTIFY_TORCH.json"
-BAR = 2.0e-6
-SEED = 0
-NUM_1D = 32
-# chr8's length over a 256 Mb window, as the JAX package's certificate has
-CHR8_FRACTION = 145_138_636 / 256_000_000
+BAR = cert.BAR_FP32
+SEED = cert.SEED
 
 
 def _seconds(fn):
@@ -89,119 +90,115 @@ def _entry(figures, geometry, seconds):
     return entry
 
 
-def certify_1m(seq_len=1_000_000, num_1d=NUM_1D):
+def certify_1m(fam=cert.FULL["1m"]):
     """The 1 Mb Net's map and tracks in both packages."""
-    params = jdec.init_net(jax.random.PRNGKey(SEED), num_1d=num_1d)
+    params = jdec.init_net(jax.random.PRNGKey(SEED), num_1d=fam.num_1d)
     tparams = params_from_numpy(jax.tree.map(np.asarray, params), "cpu")
-    codes = np.random.RandomState(SEED + 1).randint(0, 4, size=seq_len)
+    codes = np.random.RandomState(SEED + 1).randint(0, 4, size=fam.window_bp)
     seq = np.eye(4, dtype=np.float32)[codes][None]
     (w2, w1), jax_s = _seconds(lambda: [
         np.asarray(a, np.float32) for a in
-        jdec.apply_net(params, jnp.asarray(seq), num_1d=num_1d)])
+        jdec.apply_net(params, jnp.asarray(seq), num_1d=fam.num_1d)])
     with torch.inference_mode():
         (g2, g1), port_s = _seconds(lambda: [
             a.float().numpy() for a in
-            tdec.apply_net(tparams, torch.from_numpy(seq), num_1d=num_1d)])
-    assert g2.shape == w2.shape and g1.shape == w1.shape
-    figures = {"max_abs_diff": {
-        "2d": float(np.abs(g2[0, :, :, 0] - w2[0, :, :, 0]).max()),
-        "1d": float(np.abs(g1[0] - w1[0]).max())}}
-    return _entry(figures, {"seq_len": seq_len, "num_1d": num_1d},
+            tdec.apply_net(tparams, torch.from_numpy(seq), num_1d=fam.num_1d)])
+    want, got = (cert.Output({"2d": b2[0, :, :, 0], "1d": b1[0]})
+                 for b2, b1 in ((w2, w1), (g2, g1)))
+    figures = {"max_abs_diff": cert.max_abs_diffs(want, got)}
+    return _entry(figures, {"seq_len": fam.window_bp, "num_1d": fam.num_1d},
                   {"orca_tpu": jax_s, "orca_tpu_torch": port_s})
 
 
 def _compare_levels(got, want, levels):
-    assert len(got["predictions"][0]) == len(want["predictions"][0]) == len(
-        levels)
-    return {
-        "max_abs_diff": {
-            str(lv): float(np.abs(np.asarray(g, np.float32)
-                                  - np.asarray(w, np.float32)).max())
-            for lv, g, w in zip(levels, got["predictions"][0],
-                                want["predictions"][0])},
-        "starts_equal": got["start_coords"] == want["start_coords"],
-    }
+    got, want = (cert.cascade_output(levels, o) for o in (got, want))
+    assert len(got.maps) == len(want.maps) == len(levels)
+    return {"max_abs_diff": cert.max_abs_diffs(want, got),
+            "starts_equal": got.starts == want.starts}
 
 
-def certify_32m(geom=tms.GEOM_32M, fracs=(0.5, 0.13)):
+def _geometry(fam):
+    """The family's geometry as the report records it (its inputs here
+    have no run of N)."""
+    return {k: v for k, v in fam.describe().items() if k != "n_run"}
+
+
+def certify_32m(fam=cert.FULL["32m"]):
     """`genomepredict` in both packages on the JAX package's folded random
     32 Mb bundle."""
+    geom = fam.geometry
     jgeom = jms.CascadeGeometry(geom.window_bp, geom.bin_bp, geom.crop)
     jb = jzoo.fold_bundle(jzoo.random_32m_bundle(SEED, nbins=geom.bins,
                                                  crop=geom.crop))
     tb = bundle_from_numpy(jax.tree.map(np.asarray, jb), "cpu")
     seq = np.random.RandomState(SEED + 1).rand(1, geom.window_bp, 4).astype(
         np.float32)
-    wpos = geom.window_bp // 2
-    levels = sorted(jb.decoders, reverse=True)
+    levels = fam.levels(tb)
     zooms, seconds = {}, {"orca_tpu": 0.0, "orca_tpu_torch": 0.0}
-    for frac in fracs:
-        mpos = int(geom.window_bp * frac)
+    for zoom, z in fam.zooms().items():
+        args = (seq, "chrSynthetic", z["mpos"], z["wpos"])
         want, jax_s = _seconds(lambda: jms.genomepredict(
-            seq, "chrSynthetic", mpos, wpos, [jb], geometry=jgeom))
+            *args, [jb], geometry=jgeom))
         got, port_s = _seconds(lambda: tms.genomepredict(
-            seq, "chrSynthetic", mpos, wpos, [tb], geometry=geom,
-            device="cpu"))
+            *args, [tb], geometry=geom, device="cpu"))
         seconds["orca_tpu"] += jax_s
         seconds["orca_tpu_torch"] += port_s
-        zooms[f"mpos_frac_{frac}"] = _compare_levels(got, want, levels)
-    return _entry(zooms, {"window_bp": geom.window_bp,
-                          "bin_bp": geom.bin_bp, "crop": geom.crop}, seconds)
+        zooms[zoom] = _compare_levels(got, want, levels)
+    return _entry(zooms, _geometry(fam), seconds)
 
 
-def certify_256m(geom=tms.GEOM_256M, fracs=(0.44, 0.995)):
+def certify_256m(fam=cert.FULL["256m"]):
     """`genomepredict_256mb` in both packages on the JAX package's folded
     random 256 Mb bundle, a chr8-long first chromosome and its padding."""
+    geom = fam.geometry
     jgeom = jms.CascadeGeometry(geom.window_bp, geom.bin_bp, geom.crop)
     jb = jzoo.fold_256m_bundle(jzoo.random_256m_bundle(SEED))
     tb = bundle_from_numpy(jax.tree.map(np.asarray, jb), "cpu")
-    chrlen = int(geom.window_bp * CHR8_FRACTION)
-    chrlen -= chrlen % geom.bin_bp
-    normmat = assemble_normmat(
-        [["chrM", 0, chrlen, "+"], ["chrP", 0, geom.window_bp - chrlen, "+"]],
-        jb.background_cis, jb.background_trans, binsize=geom.bin_bp)
-    codes = np.random.RandomState(SEED + 1).randint(0, 4, size=geom.window_bp)
-    seq = (np.eye(4, dtype=np.uint8) * 4)[codes][None]
-    del codes
-    wpos = geom.window_bp // 2
-    levels = sorted(jb.decoders, reverse=True)
+    inp = fam.inputs(jb)
+    levels = fam.levels(tb)
     zooms, seconds = {}, {"orca_tpu": 0.0, "orca_tpu_torch": 0.0}
-    for frac in fracs:
-        mpos = int(chrlen * frac)
-        args = (seq, "chrM", [normmat], chrlen, mpos, wpos)
+    for zoom, z in fam.zooms().items():
+        args = (inp["sequence"], "chrM", [inp["normmat"]], fam.chrlen,
+                z["mpos"], z["wpos"])
         want, jax_s = _seconds(lambda: jms.genomepredict_256mb(
             *args, [jb], padding_chr="chrP", geometry=jgeom))
         got, port_s = _seconds(lambda: tms.genomepredict_256mb(
             *args, [tb], padding_chr="chrP", geometry=geom, device="cpu"))
         seconds["orca_tpu"] += jax_s
         seconds["orca_tpu_torch"] += port_s
-        zooms[f"mpos_frac_{frac}"] = _compare_levels(got, want, levels)
-    return _entry(zooms, {"window_bp": geom.window_bp,
-                          "bin_bp": geom.bin_bp, "crop": geom.crop,
-                          "chrlen": chrlen}, seconds)
+        zooms[zoom] = _compare_levels(got, want, levels)
+    return _entry(zooms, _geometry(fam), seconds)
+
+
+def estimate_256m(seconds, window_bp, n_zooms):
+    """Seconds per Mb of window and zoom of a run of `window_bp` at
+    `n_zooms` zooms, and at that rate the 256 Mb family's seconds at its
+    full geometry and zooms."""
+    per_mb = seconds / (window_bp / 1e6 * n_zooms)
+    fam = cert.FULL["256m"]
+    return per_mb, per_mb * fam.window_bp / 1e6 * len(fam.zooms())
 
 
 def not_run_256m(entry_32m):
     """The 256 Mb entry while it has not run at full geometry: its geometry
     and zooms, and its cost estimated from the 32 Mb run's seconds per Mb of
     window and zoom on this host."""
-    zooms = [k for k in entry_32m if k.startswith("mpos_frac_")]
-    mb = entry_32m["geometry"]["window_bp"] / 1e6 * len(zooms)
-    per_mb = {side: s / mb for side, s in entry_32m["seconds"].items()}
-    geom = tms.GEOM_256M
-    chrlen = int(geom.window_bp * CHR8_FRACTION)
+    fam = cert.FULL["256m"]
+    est = {side: estimate_256m(s, entry_32m["geometry"]["window_bp"],
+                               len(_figures(entry_32m)))
+           for side, s in entry_32m["seconds"].items()}
     return {
         "not_run": "a 256 Mb window through both packages on the CPU takes "
                    "8x a 32 Mb window's time per zoom (estimated_seconds) "
                    "and holds 8.2 GB of float32 forward and reverse "
-                   "windows; queued for a host with ~40 GiB free",
-        "geometry": {"window_bp": geom.window_bp, "bin_bp": geom.bin_bp,
-                     "crop": geom.crop,
-                     "chrlen": chrlen - chrlen % geom.bin_bp},
-        "zooms": ["mpos_frac_0.44", "mpos_frac_0.995"],
-        "seconds_per_Mb": per_mb,
-        "estimated_seconds": {side: v * geom.window_bp / 1e6 * 2
-                              for side, v in per_mb.items()},
+                   "windows; the port's card path is certified against "
+                   "orca_tpu at this geometry instead (the card block, from "
+                   "chip_smoke.py's certify_card line against "
+                   "tests/data/certify_card_ref.npz)",
+        "geometry": fam.describe(),
+        "zooms": list(fam.zooms()),
+        "seconds_per_Mb": {side: e[0] for side, e in est.items()},
+        "estimated_seconds": {side: e[1] for side, e in est.items()},
         "dtype": "float32", "seed": SEED, "bar": BAR, "pass": None,
     }
 
@@ -245,18 +242,15 @@ def _seeded_encodings_256m(monkeypatch, geom):
             lv: torch.from_numpy(encs[lv]) for lv in jzoo.LEVELS_256M})
 
 
-def _small_256m(monkeypatch):
-    geom = tms.CascadeGeometry(8_192_000, 32_000, 8)
-    _seeded_encodings_256m(monkeypatch, geom)
-    return certify_256m(geom, fracs=(0.995,))
-
-
+# the smallest geometries that zoom, one zoom each; the 32 Mb family's run
+# of N is for the card certificate's inputs (this harness draws its own)
 SMALL = {
-    "1m": lambda mp: certify_1m(seq_len=40_000),
-    "32m": lambda mp: certify_32m(tms.CascadeGeometry(1_024_000, 4000, 8),
-                                  fracs=(0.13,)),
-    "256m": _small_256m,
+    "1m": cert.Net1M("1m", 40_000),
+    "32m": cert.Cascade32M("32m", 1_024_000, crop=8, fracs=(0.13,),
+                           n_run=(100_000, 150_000)),
+    "256m": cert.Cascade256M("256m", 8_192_000, crop=8, fracs=(0.995,)),
 }
+CERTIFY = {"1m": certify_1m, "32m": certify_32m, "256m": certify_256m}
 KEYS = {"geometry", "dtype", "seed", "bar", "seconds", "host_threads",
         "host_peak_rss_gib", "pass"}
 
@@ -265,7 +259,9 @@ KEYS = {"geometry", "dtype", "seed", "bar", "seconds", "host_threads",
 def test_certify_harness_small(family, monkeypatch, tmp_path):
     """The harness at the smallest geometries that zoom: the bundle carried
     across, both packages' entry points, the report's keys and the bar."""
-    entry = SMALL[family](monkeypatch)
+    if family == "256m":
+        _seeded_encodings_256m(monkeypatch, SMALL[family].geometry)
+    entry = CERTIFY[family](SMALL[family])
     path = tmp_path / "certify.json"
     report = write_entry(path, family, entry)
     assert json.loads(path.read_text()) == report
@@ -277,15 +273,12 @@ def test_certify_harness_small(family, monkeypatch, tmp_path):
     assert_certified(entry)
 
 
-FULL = {"1m": certify_1m, "32m": certify_32m, "256m": certify_256m}
-
-
 @pytest.mark.slow
 @pytest.mark.parametrize("family", ["1m", "32m", "256m"])
 def test_certify_full_geometry(family):
     """The certificate at CERTIFY_SYNTH.json's full geometries: the family's
     entry goes into CERTIFY_TORCH.json, then each figure is held to the
     bar."""
-    entry = FULL[family]()
+    entry = CERTIFY[family](cert.FULL[family])
     write_entry(REPORT, family, entry)
     assert_certified(entry)
