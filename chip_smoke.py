@@ -42,13 +42,16 @@ Phases (any failure exits non-zero before the final line):
      shards) and unsharded, its max|d|; every sharded call must leave the
      current CUDA device as it found it;
  4c. the profile ("profile" JSON line): one warm bf16 32 Mb request traced
-     with `utils.profiling.trace` inside `annotate("request")`, the
-     cascade's steps annotated; from the Chrome trace the device's idle
+     with `utils.profiling.trace` inside a `request` region, the program's
+     spans on (`profiling.enable`); from the Chrome trace the device's idle
      share in the request's window (1 - the union of kernel, memcpy and
      memset intervals / the window), the top 5 device operations by summed
      time with their counts, the 5 longest idle gaps with the host op or
-     annotation active when each began, and `device_time` of the request
-     beside the smoke's own timer;
+     annotation active when each began, per `orca.*` span its calls, host
+     and self ms, launches and the idle ms put down to it (the innermost
+     span open; `idle_in_spans_share` is what no span left to `-`), the
+     request's `h2d_bytes` (the window's), and `device_time` of the
+     request beside the smoke's own timer;
   5. `genomepredict_256mb` on a whole synthetic chromosome: an in-memory
      genome of a 145.1 Mb chromosome and a padding chromosome, the region
      list of a whole-chromosome request, `retrieve_multi` for the sequence
@@ -727,10 +730,6 @@ def _merged(intervals):
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "user_annotation", "cuda_runtime", "cuda_driver")
-# the cascade's steps, labelled in the profile phase's trace (the module
-# looks them up at call time)
-PROFILED_STEPS = ("_device_sequence", "_encode_32mb", "_crop_rows",
-                  "_decode_level", "_crop_squares", "_combine_orientations")
 
 
 def read_trace(path, window_name="request"):
@@ -739,10 +738,8 @@ def read_trace(path, window_name="request"):
     intervals), the top 5 device operations by summed time with their
     counts, the 5 longest idle gaps, each with the innermost host op or
     annotation active when it began (`during`), the annotations around it
-    (`in`) and the first host ops that began inside it (`then`), the idle
-    time by gap length, and per annotated step (`steps`, the names in
-    PROFILED_STEPS) its host time and the device's idle time inside it.
-    Times in ms."""
+    (`in`) and the first host ops that began inside it (`then`), and the
+    idle time by gap length. Times in ms."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
@@ -785,16 +782,6 @@ def read_trace(path, window_name="request"):
                else "over_1ms")
         by_length[key][0] += 1
         by_length[key][1] += dur / 1e3
-    steps = {}
-    for name in PROFILED_STEPS:
-        spans = _merged((e["ts"], e["ts"] + e["dur"]) for e in events
-                        if e["name"] == name
-                        and e.get("cat") == "user_annotation")
-        host_us = sum(b - a for a, b in spans)
-        busy_in = sum(max(0, min(b, d) - max(a, c))
-                      for a, b in spans for c, d in busy)
-        steps[name] = {"calls_ms": host_us / 1e3,
-                       "device_idle_ms": (host_us - busy_in) / 1e3}
     return {
         "window_ms": (w1 - w0) / 1e3, "device_busy_ms": busy_us / 1e3,
         "idle_share": 1 - busy_us / (w1 - w0),
@@ -804,19 +791,22 @@ def read_trace(path, window_name="request"):
         "gaps": out_gaps,
         "idle_by_gap_length": {k: {"count": v[0], "ms": v[1]}
                                for k, v in by_length.items()},
-        "steps": steps,
     }
 
 
 def profile_phase(torch, ms, bundle, seq, geom, smoke_s, smi):
     """Phase 4c: one warm bf16 32 Mb request traced (`utils.profiling.trace`
-    inside an `annotate("request")`, the cascade's steps annotated too), the
-    device's idle share in the request's window read from the Chrome trace,
-    and `device_time` of the same request beside the smoke's own timer.
-    Prints one JSON line."""
+    inside a `request` region) with the program's spans on, the device's
+    idle share in the request's window read from the Chrome trace, per
+    `orca.*` span (`steps`) its calls, host and self ms, launches and the
+    device idle ms put down to it as the innermost span open
+    (`portbench.program_trace`), the bytes the request copied to the card
+    (`h2d_bytes`), and `device_time` of the same request beside the
+    smoke's own timer. Prints one JSON line."""
     import tempfile
 
-    from orca_tpu_torch.utils.profiling import annotate, device_time, trace
+    from orca_tpu_torch.utils import profiling
+    from portbench import program_trace
 
     wpos = geom.window_bp // 2
 
@@ -824,33 +814,41 @@ def profile_phase(torch, ms, bundle, seq, geom, smoke_s, smi):
         return ms.genomepredict(seq, "chrSynthetic", ZOOM_TARGETS[0], wpos,
                                 [bundle], geometry=geom)
 
-    def labelled(name, fn):
-        def run(*args, **kwargs):
-            with annotate(name):
-                return fn(*args, **kwargs)
-        return run
-
     request()
     torch.cuda.synchronize()
-    real = {name: getattr(ms, name) for name in PROFILED_STEPS}
+    previous = profiling.enable(True)
+    profiling.take()
     with tempfile.TemporaryDirectory(dir=ROOT, prefix="_smoke_") as tmp:
         try:
-            for name, fn in real.items():
-                setattr(ms, name, labelled(name, fn))
-            with trace(tmp) as path:
+            with profiling.trace(tmp) as path:
                 t0 = time.perf_counter()
-                with annotate("request"):
+                with torch.profiler.record_function("request"):
                     request()
                 torch.cuda.synchronize()
                 traced_s = time.perf_counter() - t0
                 t0 = time.perf_counter()
             export_s = time.perf_counter() - t0
+            took = profiling.take()
         finally:
-            for name, fn in real.items():
-                setattr(ms, name, fn)
+            profiling.enable(previous)
         found = read_trace(path)
+        spans = program_trace.read(path)
         trace_mb = os.path.getsize(path) / 1e6
-    timed = device_time(request, iters=3, warmup=1)
+    timed = profiling.device_time(request, iters=3, warmup=1)
+    check({n: s["calls"] for n, s in spans["spans"].items()}
+          == {n: s["calls"] for n, s in took["spans"].items()},
+          "profile: the trace's spans and the host clock's differ")
+    found["steps"] = {
+        name: {"calls": s["calls"], "host_ms": 1e3 * s["host_s"],
+               "self_ms": 1e3 * took["spans"][name]["self_s"],
+               "launches": s["launches"],
+               "device_idle_ms": 1e3 * s["idle_s"]}
+        for name, s in sorted(spans["spans"].items())}
+    found["idle_by_span_ms"] = {k: 1e3 * v
+                                for k, v in sorted(spans["idle"].items())}
+    found["idle_in_spans_share"] = 1 - (
+        spans["idle"].get(program_trace.NONE, 0.0) / spans["idle_s"])
+    found["h2d_bytes"] = took["counters"].get("h2d_bytes")
     found.update({"card": smi, "request": "bf16 32 Mb genomepredict, zoom "
                   f"{ZOOM_TARGETS[0]}", "device_time_s": timed,
                   "smoke_request_s": smoke_s, "traced_s": traced_s,
@@ -858,6 +856,12 @@ def profile_phase(torch, ms, bundle, seq, geom, smoke_s, smi):
     check(0.0 < found["idle_share"] < 1.0,
           f"idle share {found['idle_share']} outside (0, 1)")
     check(found["top_ops"] and found["gaps"], "profile: no ops or no gaps")
+    check(found["h2d_bytes"] == seq.nbytes,
+          f"profile: h2d_bytes {found['h2d_bytes']}, not {seq.nbytes}")
+    levels = {f"orca.decode.{lv}" for lv in bundle.decoders}
+    check(levels <= set(found["steps"]),
+          f"profile: decoder levels {sorted(levels - set(found['steps']))} "
+          "have no span in the trace")
     print(json.dumps({"profile": found}), flush=True)
     return found
 

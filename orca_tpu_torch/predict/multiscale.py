@@ -11,6 +11,13 @@ background per level; the 256 Mb cascade has four (256 down to 32), a
 background block-averaged per row from the region mosaic's matrix, and zoom
 proposals clamped to the first chromosome. The two orientations are averaged
 at the end.
+
+The cascades carry the program's spans (`utils.profiling`, off unless
+enabled): `orca.input_copy` and `orca.background_copy` (with the counter
+`h2d_bytes`), `orca.background_fill`, `orca.tower`, `orca.pyramid`,
+`orca.decode.<level>` (one level of the loop, per model) and `orca.sync`
+(each host wait on the card: a fetch, or a copy of host values to the card,
+which waits for the work queued before it).
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from orca_tpu_torch.models.zoo import LEVELS_256M, Model256MBundle, ModelBundle
 from orca_tpu_torch.nn import decoders, encoders
 from orca_tpu_torch.parallel.mesh import Mesh, get_inference_mesh
 from orca_tpu_torch.parallel.sequence import sharded_encoder_tower
+from orca_tpu_torch.utils import profiling
 from orca_tpu_torch.utils.config import get_config, resolve_device
 
 BINS = 8000  # 4 kb bins in a 32 Mb window
@@ -66,12 +74,16 @@ def _device_sequence(sequence, device) -> torch.Tensor:
     representable ({0, 0.25, 1} values): 16x less host-to-device traffic.
     Other float inputs pass through unchanged."""
     arr = np.asarray(sequence)
-    if arr.dtype == np.uint8:
+    if arr.dtype != np.uint8:
+        q = arr * 4
+        if (q.size and q.min() >= 0 and q.max() <= 255
+                and np.all(q == np.round(q))):
+            arr = q.astype(np.uint8)
+        else:
+            arr = np.ascontiguousarray(arr)
+    with profiling.span("orca.input_copy"):
+        profiling.count("h2d_bytes", arr.nbytes)
         return torch.from_numpy(arr).to(device)
-    q = arr * 4
-    if q.size and q.min() >= 0 and q.max() <= 255 and np.all(q == np.round(q)):
-        return torch.from_numpy(q.astype(np.uint8)).to(device)
-    return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
 def _tower(params: dict, seq: torch.Tensor,
@@ -80,9 +92,10 @@ def _tower(params: dict, seq: torch.Tensor,
     sequence-sharded over its 'seq' axis (the encodings gathered back on the
     sequence's device)."""
     halo = get_config().encoder_halo_bp
-    if mesh is None:
-        return encoders.apply_encoder_tower(params, seq, halo_bp=halo)
-    return sharded_encoder_tower(params, seq, mesh, halo_bp=halo)
+    with profiling.span("orca.tower"):
+        if mesh is None:
+            return encoders.apply_encoder_tower(params, seq, halo_bp=halo)
+        return sharded_encoder_tower(params, seq, mesh, halo_bp=halo)
 
 
 def _encode_32mb(bundle: ModelBundle, seq: torch.Tensor,
@@ -91,8 +104,9 @@ def _encode_32mb(bundle: ModelBundle, seq: torch.Tensor,
     with a mesh the tower runs sequence-sharded over it, and the pyramid on
     the bundle's device."""
     feats = _tower(bundle.encoder, seq, mesh)
-    encs = encoders.apply_pyramid(bundle.pyramid, feats, levels=5,
-                                  up_pass=bundle.pyramid_up_pass)
+    with profiling.span("orca.pyramid"):
+        encs = encoders.apply_pyramid(bundle.pyramid, feats, levels=5,
+                                      up_pass=bundle.pyramid_up_pass)
     return dict(zip(LEVEL_ORDER, encs))
 
 
@@ -136,7 +150,8 @@ def _decode_level(bundle: ModelBundle, geom: CascadeGeometry, level: int,
     start_bins, next coarse)."""
     b = enc_crop.shape[0]
     n = b // 2
-    nm = torch.as_tensor(log_nm, device=enc_crop.device)
+    with profiling.span("orca.sync"):
+        nm = torch.as_tensor(log_nm, device=enc_crop.device)
     nm = nm[:, :, None] if nm.dim() == 2 else nm.permute(1, 2, 0)
     distenc = nm[None].expand(b, geom.crop, geom.crop, bundle.num_2d)
     pred = decoders.apply_decoder(
@@ -152,7 +167,9 @@ def _decode_level(bundle: ModelBundle, geom: CascadeGeometry, level: int,
         _zoom_start_index(geom, level, mpos, wpos, start_bins[n:], rc=True),
     ])
     next_start = start_bins + start_index * level
-    coarse_next = _crop_squares(pred, start_index.tolist(), geom.half)
+    with profiling.span("orca.sync"):
+        rows = start_index.tolist()
+    coarse_next = _crop_squares(pred, rows, geom.half)
     return pred, next_start, coarse_next
 
 
@@ -171,19 +188,22 @@ def _cascade_32mb(bundle: ModelBundle, geom: CascadeGeometry, seq, mpos, wpos,
     encs = _encode_32mb(bundle, seq2, mesh)
     device = seq.device
     start_bins = torch.zeros(2 * n, dtype=torch.int32, device=device)
-    mpos = torch.tensor(mpos, dtype=torch.float32, device=device)
-    wpos = torch.tensor(wpos, dtype=torch.float32, device=device)
+    with profiling.span("orca.sync"):
+        mpos = torch.tensor(mpos, dtype=torch.float32, device=device)
+        wpos = torch.tensor(wpos, dtype=torch.float32, device=device)
     coarse = None
     preds, starts = [], []
     for j, level in enumerate(sorted(bundle.decoders, reverse=True)):
-        starts.append(start_bins[:n])
-        enc_crop = _crop_rows(encs[level], (start_bins // level).tolist(),
-                              geom.crop)
-        pred, start_bins, coarse = _decode_level(
-            bundle, geom, level, enc_crop, log_normmats[j], start_bins, mpos,
-            wpos, coarse,
-        )
-        preds.append(_combine_orientations(pred))
+        with profiling.span("orca.decode", level):
+            starts.append(start_bins[:n])
+            with profiling.span("orca.sync"):
+                rows = (start_bins // level).tolist()
+            enc_crop = _crop_rows(encs[level], rows, geom.crop)
+            pred, start_bins, coarse = _decode_level(
+                bundle, geom, level, enc_crop, log_normmats[j], start_bins,
+                mpos, wpos, coarse,
+            )
+            preds.append(_combine_orientations(pred))
     return torch.stack(preds), torch.stack([s[0] for s in starts])
 
 
@@ -309,8 +329,9 @@ def genomepredict(
             preds, starts = _cascade_32mb(
                 bundle, geometry, seq, mpos, wpos, bundle.log_normmats(), mesh
             )
-            allpreds.append(preds.cpu().numpy())
-            allstarts.append(starts.cpu().numpy())
+            with profiling.span("orca.sync"):
+                allpreds.append(preds.cpu().numpy())
+                allstarts.append(starts.cpu().numpy())
 
     lvl_list = sorted(models[0].decoders, reverse=True)
     output = {}
@@ -401,10 +422,11 @@ def _encode_256mb(bundle: Model256MBundle, seq: torch.Tensor,
     bins): the tower (sequence-sharded over `mesh` when given), the 32 Mb
     pyramid's last output, then the 3-level pyramid."""
     feats = _tower(bundle.encoder, seq, mesh)
-    enc128k = encoders.apply_pyramid(bundle.pyramid1, feats, levels=5,
-                                     up_pass=True)[-1]
-    encs = encoders.apply_pyramid(bundle.pyramid, enc128k, levels=3,
-                                  up_pass=True)
+    with profiling.span("orca.pyramid"):
+        enc128k = encoders.apply_pyramid(bundle.pyramid1, feats, levels=5,
+                                         up_pass=True)[-1]
+        encs = encoders.apply_pyramid(bundle.pyramid, enc128k, levels=3,
+                                      up_pass=True)
     return dict(zip(LEVELS_256M, encs))
 
 
@@ -442,7 +464,9 @@ def _zoom_start_index_256(geom: CascadeGeometry, factor: int, mpos, wpos,
     n = start_bins.shape[0] // 2
     halfwin = geom.window_bp / 2.0
     binw = float(geom.bin_bp)
-    fac = torch.tensor(factor, dtype=torch.float32, device=start_bins.device)
+    with profiling.span("orca.sync"):
+        fac = torch.tensor(factor, dtype=torch.float32,
+                           device=start_bins.device)
     span = geom.crop * geom.bin_bp * fac
     prop_fwd = (mpos - span / 4) - (wpos - halfwin + start_bins[:n] * binw)
     prop_rc = (mpos - span / 4) - (
@@ -478,7 +502,9 @@ def _decode_level_256(bundle: Model256MBundle, geom: CascadeGeometry,
     start_index = _zoom_start_index_256(geom, factor, mpos, wpos, chrlen,
                                         start_bins)
     next_start = start_bins + start_index * factor
-    coarse_next = _crop_squares(pred, start_index.tolist(), geom.half)
+    with profiling.span("orca.sync"):
+        rows = start_index.tolist()
+    coarse_next = _crop_squares(pred, rows, geom.half)
     return pred, next_start, coarse_next
 
 
@@ -492,25 +518,33 @@ def _cascade_256mb(bundle: Model256MBundle, geom: CascadeGeometry, seq, mpos,
     device = seq.device
     encs = _encode_256mb_fwd_rc(bundle, seq, mesh)
     start_bins = torch.zeros(2 * n, dtype=torch.int32, device=device)
-    mpos, wpos, chrlen = (torch.tensor(v, dtype=torch.float32, device=device)
-                          for v in (mpos, wpos, chrlen))
-    normmat = torch.as_tensor(normmat, device=device)
+    with profiling.span("orca.sync"):
+        mpos, wpos, chrlen = (
+            torch.tensor(v, dtype=torch.float32, device=device)
+            for v in (mpos, wpos, chrlen))
+    with profiling.span("orca.background_copy"):
+        if isinstance(normmat, np.ndarray):
+            profiling.count("h2d_bytes", normmat.nbytes)
+        normmat = torch.as_tensor(normmat, device=device)
     coarse = None
     preds, starts, norms = [], [], []
     for j, level in enumerate(sorted(bundle.decoders, reverse=True)):
         factor = geom.bins // (geom.crop * 2**j)  # == level // 8 in production
-        rows = start_bins.tolist()
-        normmat_r = _block_average_rows(normmat, rows, factor, geom.crop)
-        enc_starts = [s // factor for s in rows]
-        assert max(enc_starts) + geom.crop <= encs[level].shape[1], enc_starts
-        enc_crop = _crop_rows(encs[level], enc_starts, geom.crop)
-        starts.append(start_bins[:n])
-        norms.append(normmat_r[0])
-        pred, start_bins, coarse = _decode_level_256(
-            bundle, geom, level, factor, enc_crop, normmat_r, start_bins,
-            mpos, wpos, chrlen, coarse,
-        )
-        preds.append(_combine_orientations(pred)[..., 0])
+        with profiling.span("orca.decode", level):
+            with profiling.span("orca.sync"):
+                rows = start_bins.tolist()
+            normmat_r = _block_average_rows(normmat, rows, factor, geom.crop)
+            enc_starts = [s // factor for s in rows]
+            assert (max(enc_starts) + geom.crop
+                    <= encs[level].shape[1]), enc_starts
+            enc_crop = _crop_rows(encs[level], enc_starts, geom.crop)
+            starts.append(start_bins[:n])
+            norms.append(normmat_r[0])
+            pred, start_bins, coarse = _decode_level_256(
+                bundle, geom, level, factor, enc_crop, normmat_r, start_bins,
+                mpos, wpos, chrlen, coarse,
+            )
+            preds.append(_combine_orientations(pred)[..., 0])
     return (torch.stack(preds), torch.stack([s[0] for s in starts]),
             torch.stack(norms))
 
@@ -518,11 +552,12 @@ def _cascade_256mb(bundle: Model256MBundle, geom: CascadeGeometry, seq, mpos,
 def _filled_background(normmat: np.ndarray) -> np.ndarray:
     """A float32 copy of a region mosaic's background with its NaNs (cis
     distances past the expectation's end) set to its least value."""
-    normmat = np.array(normmat, dtype=np.float32)
-    mask = np.isnan(normmat)
-    if mask.any():
-        normmat[mask] = np.nanmin(normmat[~mask]) if (~mask).any() else 1.0
-    return normmat
+    with profiling.span("orca.background_fill"):
+        normmat = np.array(normmat, dtype=np.float32)
+        mask = np.isnan(normmat)
+        if mask.any():
+            normmat[mask] = np.nanmin(normmat[~mask]) if (~mask).any() else 1.0
+        return normmat
 
 
 def genomepredict_256mb(
@@ -565,9 +600,10 @@ def genomepredict_256mb(
                 bundle, geometry, seq, mpos, wpos, chrlen,
                 _filled_background(normmats[ii]), mesh,
             )
-            allpreds.append(preds.cpu().numpy())
-            allstarts.append(starts.cpu().numpy())
-            allnormmats.append(norms.cpu().numpy())
+            with profiling.span("orca.sync"):
+                allpreds.append(preds.cpu().numpy())
+                allstarts.append(starts.cpu().numpy())
+                allnormmats.append(norms.cpu().numpy())
 
     lvl_list = sorted(models[0].decoders, reverse=True)
     factors = [geometry.bins // (geometry.crop * 2**j)

@@ -531,6 +531,9 @@ EXEMPT_NAMES = {
     ("nn/encoders.py", "pallas_encoder_enabled"):
         "whether the TPU's Pallas tower runs; the port's tower always runs "
         "its CUDA kernels on the card",
+    ("utils/profiling.py", "annotate"):
+        "the port's `span` labels a region of a trace, and also times it "
+        "on the host when the program's spans are on",
 }
 
 
