@@ -18,12 +18,19 @@ enabled): `orca.input_copy` and `orca.background_copy` (with the counter
 `orca.decode.<level>` (one level of the loop, per model) and `orca.sync`
 (each host wait on the card: a fetch, or a copy of host values to the card,
 which waits for the work queued before it).
+
+On a CUDA card under inference mode each decoder level replays a CUDA graph
+(`_LevelGraphs`): captured on the first call with its key, replayed on every
+later one, counted by `decode_graph_captures` and `decode_graph_replays`.
+Training, autograd and CPU tensors run the same code eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -142,6 +149,144 @@ def _crop_squares(pred: torch.Tensor, starts: Sequence[int], size: int):
     )
 
 
+def _graph_path(*inputs) -> bool:
+    """Whether a decoder level replays its CUDA graph: under inference mode
+    (never in training, which records autograd) with every tensor input on
+    a CUDA card."""
+    return torch.is_inference_mode_enabled() and all(
+        x.is_cuda for x in inputs if isinstance(x, torch.Tensor))
+
+
+def _graph_key(bundle, level: int, *inputs) -> tuple:
+    """A level graph's key: the bundle (by identity), the level, and each
+    input's device, dtype and shape (a host array's dtype and shape; None
+    where no coarse map enters)."""
+    def sig(x):
+        if x is None:
+            return None
+        if isinstance(x, np.ndarray):
+            return ("host", x.dtype.str, x.shape)
+        return (x.device, x.dtype, tuple(x.shape))
+
+    return (id(bundle), level) + tuple(sig(x) for x in inputs)
+
+
+@dataclasses.dataclass
+class _LevelGraph:
+    graph: torch.cuda.CUDAGraph
+    pool: tuple  # the memory pool it was captured into
+    out: torch.Tensor  # the device's static output buffer it writes
+    params: tuple  # the parameter trees it reads, kept alive with it
+    held: dict  # input index -> (host array, its copy on the card)
+
+
+class _DeviceGraphs:
+    """What a device's level graphs share: one memory pool, a side stream
+    to capture on, static buffers by (role, dtype, shape), and the event of
+    the last replay."""
+
+    def __init__(self, device: torch.device):
+        self.pool = None
+        self.side = torch.cuda.Stream(device)
+        self.done = torch.cuda.Event()
+        self.buffers: Dict[tuple, torch.Tensor] = {}
+
+    def buffer(self, role, like: torch.Tensor) -> torch.Tensor:
+        key = (role, like.dtype, tuple(like.shape))
+        if key not in self.buffers:
+            self.buffers[key] = torch.empty_like(
+                like, memory_format=torch.contiguous_format)
+        return self.buffers[key]
+
+
+class _LevelGraphs:
+    """The decoder levels' CUDA graphs, one a `_graph_key`, captured on the
+    first call that meets the key and replayed on every later one. A
+    device's graphs share a memory pool and static buffers, so they never
+    run at once: a lock orders copy-in, replay and clone on the host, and
+    each replay waits on its stream for the device's previous one."""
+
+    def __init__(self):
+        self._lock = threading.RLock()
+        self._graphs: Dict[tuple, _LevelGraph] = {}
+        self._devices: Dict[torch.device, _DeviceGraphs] = {}
+
+    def run(self, bundle, level: int, fn, params: tuple, *inputs):
+        """fn(*inputs) from the level's graph. Tensors are copied into the
+        static buffers; a host array (a 32 Mb level's background) is copied
+        to the card at capture and again only when it changes. Returns a
+        copy of the output that no later replay overwrites."""
+        key = _graph_key(bundle, level, *inputs)
+        device = next(x.device for x in inputs if isinstance(x, torch.Tensor))
+        with self._lock, torch.cuda.device(device):
+            dev = self._devices.get(device)
+            if dev is None:
+                dev = self._devices[device] = _DeviceGraphs(device)
+            stream = torch.cuda.current_stream()
+            stream.wait_event(dev.done)
+            entry = self._graphs.get(key)
+            if entry is not None and any(
+                    a is not b for a, b in zip(entry.params, params)):
+                entry = None
+            held = {} if entry is None else entry.held
+            static = []
+            for i, x in enumerate(inputs):
+                if isinstance(x, np.ndarray):
+                    if i not in held:
+                        held[i] = (x.copy(), torch.as_tensor(x, device=device))
+                    elif not np.array_equal(held[i][0], x, equal_nan=True):
+                        held[i][1].copy_(torch.from_numpy(x))
+                        held[i] = (x.copy(), held[i][1])
+                    x = held[i][1]
+                elif x is not None:
+                    x = dev.buffer(("in", i), x).copy_(x)
+                static.append(x)
+            if entry is None:
+                if all(k[0] != key[0] for k in self._graphs):
+                    weakref.finalize(bundle, self._drop,
+                                     key[0]).atexit = False
+                entry = self._graphs[key] = self._capture(dev, fn, static,
+                                                          params, held)
+            entry.graph.replay()
+            out = entry.out.clone()
+            dev.done.record(stream)
+        profiling.count("decode_graph_replays", 1)
+        return out
+
+    def _capture(self, dev: _DeviceGraphs, fn, static, params,
+                 held) -> _LevelGraph:
+        """Two eager runs on the side stream (cuDNN's plans and workspaces
+        are made outside the graph), then the capture into the device's
+        pool: a new one where no live graph holds the last (a pool whose
+        graphs are all freed cannot take another)."""
+        profiling.count("decode_graph_captures", 1)
+        current = torch.cuda.current_stream()
+        dev.side.wait_stream(current)
+        with torch.cuda.stream(dev.side):
+            for _ in range(2):
+                out = fn(*static)
+            buf = dev.buffer("out", out)
+            graph = torch.cuda.CUDAGraph()
+            if all(g.pool != dev.pool for g in self._graphs.values()):
+                dev.pool = torch.cuda.graph_pool_handle()
+            graph.capture_begin(dev.pool, capture_error_mode="thread_local")
+            try:
+                buf.copy_(fn(*static))
+            finally:
+                graph.capture_end()
+        current.wait_stream(dev.side)
+        return _LevelGraph(graph, dev.pool, buf, tuple(params), held)
+
+    def _drop(self, owner: int) -> None:
+        """Forget a collected bundle's graphs (an id can be reused)."""
+        with self._lock:
+            for key in [k for k in self._graphs if k[0] == owner]:
+                del self._graphs[key]
+
+
+_LEVEL_GRAPHS = _LevelGraphs()
+
+
 def _decode_level(bundle: ModelBundle, geom: CascadeGeometry, level: int,
                   enc_crop, log_nm: np.ndarray, start_bins: torch.Tensor,
                   mpos: torch.Tensor, wpos: torch.Tensor, coarse):
@@ -150,18 +295,29 @@ def _decode_level(bundle: ModelBundle, geom: CascadeGeometry, level: int,
     start_bins, next coarse)."""
     b = enc_crop.shape[0]
     n = b // 2
-    with profiling.span("orca.sync"):
-        nm = torch.as_tensor(log_nm, device=enc_crop.device)
-    nm = nm[:, :, None] if nm.dim() == 2 else nm.permute(1, 2, 0)
-    distenc = nm[None].expand(b, geom.crop, geom.crop, bundle.num_2d)
-    pred = decoders.apply_decoder(
-        bundle.decoders[level], enc_crop, distenc, coarse,
-        num_2d=bundle.num_2d, upsample_mode=bundle.upsample_mode,
-    )
-    if level == 1 and bundle.decoder_1pt is not None:
-        pred = pred + decoders.apply_decoder1m(
-            bundle.decoder_1pt, enc_crop, num_2d=bundle.num_2d
+    head = bundle.decoder_1pt if level == 1 else None
+
+    def decode(enc_crop, nm, coarse):
+        nm = nm[:, :, None] if nm.dim() == 2 else nm.permute(1, 2, 0)
+        distenc = nm[None].expand(b, geom.crop, geom.crop, bundle.num_2d)
+        pred = decoders.apply_decoder(
+            bundle.decoders[level], enc_crop, distenc, coarse,
+            num_2d=bundle.num_2d, upsample_mode=bundle.upsample_mode,
         )
+        if head is not None:
+            pred = pred + decoders.apply_decoder1m(
+                head, enc_crop, num_2d=bundle.num_2d
+            )
+        return pred
+
+    if _graph_path(enc_crop, coarse):
+        pred = _LEVEL_GRAPHS.run(bundle, level, decode,
+                                 (bundle.decoders[level], head),
+                                 enc_crop, log_nm, coarse)
+    else:
+        with profiling.span("orca.sync"):
+            nm = torch.as_tensor(log_nm, device=enc_crop.device)
+        pred = decode(enc_crop, nm, coarse)
     start_index = torch.cat([
         _zoom_start_index(geom, level, mpos, wpos, start_bins[:n], rc=False),
         _zoom_start_index(geom, level, mpos, wpos, start_bins[n:], rc=True),
@@ -493,12 +649,22 @@ def _decode_level_256(bundle: Model256MBundle, geom: CascadeGeometry,
     backgrounds: the reverse-complement rows use the spatially flipped
     distance encoding. Returns (pred, next start_bins, next coarse)."""
     n = enc_crop.shape[0] // 2
-    distenc = torch.log(normmat_r)
-    distenc = torch.cat([distenc[:n], torch.flip(distenc[n:], dims=(1, 2))])
-    pred = decoders.apply_decoder(
-        bundle.decoders[level], enc_crop, distenc[..., None], coarse,
-        upsample_mode=bundle.upsample_mode,
-    )
+
+    def decode(enc_crop, normmat_r, coarse):
+        distenc = torch.log(normmat_r)
+        distenc = torch.cat([distenc[:n],
+                             torch.flip(distenc[n:], dims=(1, 2))])
+        return decoders.apply_decoder(
+            bundle.decoders[level], enc_crop, distenc[..., None], coarse,
+            upsample_mode=bundle.upsample_mode,
+        )
+
+    if _graph_path(enc_crop, normmat_r, coarse):
+        pred = _LEVEL_GRAPHS.run(bundle, level, decode,
+                                 (bundle.decoders[level],),
+                                 enc_crop, normmat_r, coarse)
+    else:
+        pred = decode(enc_crop, normmat_r, coarse)
     start_index = _zoom_start_index_256(geom, factor, mpos, wpos, chrlen,
                                         start_bins)
     next_start = start_bins + start_index * factor
