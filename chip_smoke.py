@@ -1096,7 +1096,7 @@ def onemb_phase(torch, cc, zoo, genome, peaks, sms):
     before each call and read just after; then one window on the card
     against the CPU plain path. Returns {dtype: launches}."""
     from orca_tpu_torch.nn import encoders
-    from orca_tpu_torch.predict import onemb
+    from orca_tpu_torch.predict import multiscale, onemb
 
     num_1d, window = 32, ONE_MB_WINDOW
     starts = [10_000_000 + 7_000_000 * k for k in range(8)]
@@ -1160,7 +1160,7 @@ def onemb_phase(torch, cc, zoo, genome, peaks, sms):
                        lambda: onemb.screen_windows(bf16, seqs, batch_size=4))
     check_1m(screen, None, 8, num_1d, "screen_windows")
     print(f"  screen_windows: {secs / len(seqs):.4f} s per window", flush=True)
-    with Timed(torch, onemb, "_device_sequence") as t_seq:
+    with Timed(torch, multiscale, "_device_sequence") as t_seq:
         (pred, tracks), secs = run(
             "predict_1m bf16 (4 windows, tracks, RC average)", torch.bfloat16,
             1, lambda: onemb.predict_1m(bf16, seqs[:4], with_1d=True,
@@ -1168,7 +1168,7 @@ def onemb_phase(torch, cc, zoo, genome, peaks, sms):
     check_1m(pred, tracks, 4, num_1d, "predict_1m bf16")
     # the split of that call: the tower alone on the same 8 rows (not
     # counted); the rest is the decoder, the track head and the RC average
-    x = onemb._device_sequence(seqs[:4], "cuda")
+    x = multiscale._device_sequence(seqs[:4], "cuda")
     x = torch.cat([x, torch.flip(x, dims=(1, 2))])
     tower_s = []
     with torch.inference_mode():
